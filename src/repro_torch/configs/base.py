@@ -1,0 +1,116 @@
+"""Model configuration: one frozen dataclass per backbone.
+
+A copy of ``repro.configs.base`` (the port imports nothing of the JAX
+package). Only the fields and helpers the ported slice reads are kept:
+``ModelConfig`` with its derived dimensions, ``with_``/``reduced`` and
+``get_config``, which loads ``repro_torch.configs.<arch>``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD (arXiv:2405.21060) minimal settings."""
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    source: str = ""          # citation for the assigned config
+    arch_type: str = "dense"  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0         # 0 -> d_model // n_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    act: str = "silu"         # silu (SwiGLU) | gelu (GeGLU)
+    glu: bool = True
+    rope_theta: float = 10000.0
+    sliding_window: int = 0   # 0 -> full attention
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0  # grok/gemma2-style tanh softcap, 0 = off
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 0
+    moe_every: int = 0
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    prefix_tokens: int = 0
+    dtype: str = "bfloat16"
+    objective: str = "diffusion"  # diffusion (paper-native) | ar
+    time_emb_dim: int = 256
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant of the same family (<=2 layers, d_model<=256,
+        float32), identical to ``repro.configs.base.ModelConfig.reduced``."""
+        kw: dict[str, Any] = dict(
+            n_layers=min(self.n_layers, 2 if self.arch_type != "hybrid" else self.attn_every),
+            d_model=min(self.d_model, 256),
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 32),
+            prefix_tokens=min(self.prefix_tokens, 8),
+            dtype="float32",
+        )
+        hd = 32
+        n_heads = max(2, min(self.n_heads, 4))
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        kw.update(n_heads=n_heads, n_kv_heads=n_kv, head_dim=hd)
+        if self.sliding_window:
+            kw["sliding_window"] = 16
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(self.moe, num_experts=min(self.moe.num_experts, 4))
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, state_dim=16, head_dim=16, chunk_size=16)
+        return self.with_(**kw)
+
+
+# the architectures ported so far (the JAX package has eleven)
+ARCH_IDS = ["gemma_2b"]
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    """Load ``repro_torch.configs.<arch>`` and apply overrides."""
+    arch = arch.replace("-", "_").replace(".", "p")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    cfg: ModelConfig = mod.get_config()
+    if overrides:
+        cfg = cfg.with_(**overrides)
+    return cfg

@@ -1,0 +1,12 @@
+"""gemma-2b [dense] — 18L d_model=2048 8H MQA (kv=1) d_ff=16384
+vocab=256000, GeGLU, head_dim=256, tied embeddings. [arXiv:2403.08295]"""
+from .base import ModelConfig
+
+
+def get_config() -> ModelConfig:
+    return ModelConfig(
+        name="gemma-2b", source="arXiv:2403.08295", arch_type="dense",
+        n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1, head_dim=256,
+        d_ff=16384, vocab_size=256000, act="gelu", glu=True,
+        tie_embeddings=True,
+    )

@@ -1,0 +1,104 @@
+"""Continuous diffusion language modeling: the paper's sampler over a
+transformer eps-network in token-embedding space.
+
+The counterpart of the sampling half of ``repro.diffusion.lm``. Generation
+runs any DEIS solver in embedding space -- each NFE is one full-sequence
+backbone forward -- then rounds to tokens through the tied LM head.
+
+Random numbers. Each request owns two ``torch.Generator``s derived from its
+seed alone (:func:`request_generators`): one draws its prior, one its solve
+noise. Stacked rows draw row by row, each from its own generators, so a
+request's sample does not depend on the batch it landed in (the
+counterpart of the reference's ``request_keys``; the numbers differ from
+JAX's threefry draws).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..core import sampler as SAMPLER
+from ..core.plan import SolverPlan
+from ..models import transformer as T
+
+X0_SCALE = 25.0    # x0 = embed * X0_SCALE so data std ~ 0.5
+
+
+def make_eps_fn(params, cfg: ModelConfig, *, valid_len=None):
+    """eps_theta(x, t) closure for the DEIS solvers; x: (B, S, D), t scalar
+    or (B,). Computes the eps head only (no vocabulary logits).
+
+    ``valid_len``: optional (B,) int per-row true length for bucket-padded
+    batches, threaded to attention so a row's trajectory does not depend on
+    the bucket's tail padding."""
+    def eps_fn(x, t):
+        t_b = t.to(torch.float32).expand(x.shape[0])
+        out = T.forward(params, cfg, embeds=x, t_cond=t_b, causal=False,
+                        valid_len=valid_len, logits=False)
+        return out["eps"].to(x.dtype)
+    return eps_fn
+
+
+def decode_tokens(params, cfg: ModelConfig, x0):
+    """Round solved embeddings ``x0`` to tokens through the LM head:
+    ``argmax((x0 / X0_SCALE) @ head)`` in float32 (first maximum wins, as
+    ``jnp.argmax``)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x0 / X0_SCALE) @ head.to(torch.float32)
+    return torch.argmax(logits, dim=-1)
+
+
+def request_generators(seeds, device) -> list:
+    """Per-request ``(prior, solve)`` generator pairs on ``device``, each
+    seeded from the request's own seed through numpy's SeedSequence."""
+    out = []
+    for s in seeds:
+        a, b = np.random.SeedSequence(int(s)).generate_state(2)
+        out.append((torch.Generator(device=device).manual_seed(int(a)),
+                    torch.Generator(device=device).manual_seed(int(b))))
+    return out
+
+
+def init_sample_state(cfg: ModelConfig, plan: SolverPlan, gens, *,
+                      seq_len: int, prior_std: float, valid_lens=None,
+                      x_T=None):
+    """Build the stacked ``SamplerState`` for a group of requests.
+
+    ``plan`` is stacked and lies on the device to solve on; ``gens`` are the
+    rows' ``(prior, solve)`` generator pairs (None with ``x_T`` given and a
+    deterministic plan). Row ``i``'s prior is drawn
+    from its own prior generator at its TRUE length (``valid_lens[i]``,
+    default ``seq_len``), zero-padded to ``seq_len`` and scaled by
+    ``prior_std``, so the prior does not depend on the group or the bucket.
+    ``x_T`` replaces the draw (the tests inject the reference's prior)."""
+    device = plan.ts.device
+    if x_T is None:
+        rows = []
+        for i, (g_prior, _) in enumerate(gens):
+            lv = seq_len if valid_lens is None else int(valid_lens[i])
+            r = torch.randn((lv, cfg.d_model), generator=g_prior,
+                            device=device, dtype=torch.float32)
+            rows.append(F.pad(r, (0, 0, 0, seq_len - lv)))
+        x_T = torch.stack(rows) * prior_std
+    key = None if gens is None else [g_solve for _, g_solve in gens]
+    return SAMPLER.init_state(plan, x_T, key)
+
+
+def sample_tokens_stream(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
+                         seq_len: int, prior_std: float, hooks=None,
+                         x_T=None, noise=None):
+    """One-shot solve of a stacked per-request group on the parameters'
+    device. Returns ``(tokens, x0)``.
+
+    This is the reference the serving engine reproduces: running the same
+    stacked plan step by step, interleaved with other groups, joined or
+    compacted, yields the same per-request samples."""
+    plan = plan.to(params["embed"].device)
+    eps_fn = make_eps_fn(params, cfg)
+    state = init_sample_state(cfg, plan, gens, seq_len=seq_len,
+                              prior_std=prior_std, x_T=x_T)
+    x0 = SAMPLER.sample(plan, eps_fn, state.x, state.key, hooks=hooks,
+                        noise=noise)
+    return decode_tokens(params, cfg, x0), x0

@@ -1,0 +1,758 @@
+"""Streaming continuous-batching DEIS sampling service on PyTorch.
+
+The counterpart of ``repro.serving.engine.DiffusionServeEngine`` (without
+the request-axis mesh and without the autoregressive engine). The
+semantics are the reference's:
+
+Admission.  ``submit()`` enqueues; at every ``tick()`` pending requests are
+admitted into *groups* at a step boundary. A group stacks up to
+``max_group`` requests whose plans share one :attr:`SolverPlan.family` and
+whose (bucketed) ``seq_len`` matches; solver names and NFE budgets may
+differ (shorter plans are padded to the bucket's longest grid). Each
+request draws its prior and its solve noise from its own generators,
+derived from ``Request.seed`` alone, so samples are per-request
+reproducible regardless of batch composition, joining or compaction.
+At every compaction boundary pending same-bucket requests may **join** a
+surviving in-flight group; the executor steps every row at its own count
+(a per-row ``k`` vector). ``seq_len_buckets=(...)`` rounds request lengths
+up to bucket edges; a per-row ``lens`` vector masks each row's padded tail
+out of attention, and every decode is cut back to the true ``seq_len``.
+
+Scheduling.  A tick selects up to ``steps_per_tick`` groups (default all)
+ordered by effective priority (with starvation aging), earliest absolute
+deadline, then admission order, and advances each by one solver step.
+
+Completion, compaction, early exit.  Rows finish at their own step count;
+with ``compaction=True`` the group is row-gathered down to its survivors
+(or refilled by joiners) at the next boundary. ``retire=RetirePolicy(...)``
+builds every plan with ``error_estimate=True`` and retires converged rows
+early; ``enforce_deadlines`` evicts expired rows (a Result flagged
+``deadline_exceeded``); ``cancel(uid)`` retires a request (flagged
+``cancelled``). Conservation: submitted == completed + evicted + cancelled.
+
+Executors.  The reference AOT-compiles one executor per ``(signature,
+batch, seq_len)``. Here an executor is a cached plain callable (one eager
+step over the eps-network) under the same key, so "zero warm recompiles"
+reads as zero new cache entries on a warm replay; the hit/miss counters
+are the reference's. ``compile_s`` is the time to build that callable
+(near zero); first-call costs on the card (cuBLAS heuristics, the Triton
+kernel's build) land in the first steps' solve time.
+
+Device.  The engine runs where its parameters lie: ``device=None`` means
+CUDA, and raises without one. Every ``ab``-method plan is routed through
+the fused AB-step kernel (:mod:`repro_torch.kernels.deis_step`). All
+selected groups are dispatched before the engine waits on any: one
+synchronisation per group step, then the host reads what it needs (the
+finished rows' tokens, the error estimates).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import cached_make_plan, get_timesteps
+from ..core import sampler as SAMPLER
+from ..core.adaptive import RetirePolicy
+from ..core.plan import (SolverPlan, join_rows, pad_plan, solver_stages,
+                         stack_plans, take_rows)
+from ..core.sde import SDE, VPSDE
+from ..device import resolve_device
+from ..diffusion import lm as DLM
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import Tracer
+
+
+@dataclasses.dataclass
+class Request:
+    """One diffusion serving request. ``priority`` (higher first) and
+    ``deadline_s`` (latency budget from submit time) change WHEN a request
+    is stepped, never WHAT it computes: samples depend only on
+    ``(solver, nfe, eta, seed, seq_len)``."""
+    uid: int
+    seq_len: int = 64
+    nfe: int = 10
+    solver: str = "tab3"
+    eta: float | None = None               # required iff solver == "ddim_eta"
+    seed: int = 0
+    priority: int = 0
+    deadline_s: float | None = None
+
+
+@dataclasses.dataclass
+class Result:
+    """Final per-request outcome (fields as in the reference): ``latency_s``
+    is the group's solve time since the request's own admission, ``nfe``
+    the evals its own plan spent, ``queue_wait_s`` submit -> admission."""
+    uid: int
+    tokens: np.ndarray
+    latency_s: float
+    nfe: int = 0
+    compile_s: float = 0.0
+    queue_wait_s: float = 0.0
+    deadline_exceeded: bool = False  # evicted: tokens empty, nfe 0
+    cancelled: bool = False          # retired by cancel(): tokens empty, nfe 0
+    early_exit: bool = False         # retired converged by the RetirePolicy
+    final_err: float | None = None   # last local-error estimate, if any
+
+
+@dataclasses.dataclass
+class StepEvent:
+    """Per-step progress emitted to the ``on_step`` serving callback (fields
+    as in the reference; per-row tuples are aligned with ``uids``)."""
+    uids: tuple
+    k: int
+    n_steps: int
+    tokens: Optional[np.ndarray] = None
+    row_steps: Optional[tuple] = None
+    row_k: Optional[tuple] = None
+    row_seq_lens: Optional[tuple] = None
+    row_err: Optional[tuple] = None
+
+
+# err histogram edges: local-error estimates are small dimensionless
+# magnitudes (x-space Linf), nothing like the registry's latency defaults
+_ERR_EDGES = (1e-8, 1e-7, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0)
+
+# pndm spends 3 extra evals on each of its 3 warmup steps, so its grid is
+# nfe - 9 intervals (floored at the 4 steps PNDM requires)
+_PNDM_WARMUP_EXTRA = 9
+
+
+def _spent_nfe(method: str, row: "_Row", k_own: int) -> int:
+    """Network evals a row has spent after ``k_own`` of its own steps."""
+    if method == "rk":
+        return k_own * max(1, row.nfe // max(1, row.n_steps))
+    if method == "pndm":
+        return k_own + 3 * min(k_own, 3)
+    return k_own
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A submitted request waiting for admission (fresh group or join)."""
+    req: Request
+    plan: SolverPlan            # unstacked, at the request's own grid
+    t_sub: float                # perf_counter at submit (deadline anchor)
+    s_len: int                  # BUCKETED seq_len the solve runs at
+
+
+@dataclasses.dataclass
+class _Row:
+    """Per-request bookkeeping inside a (possibly ragged) group. ``k0`` is
+    the group step count at this row's admission: its own step count is
+    ``g.k - k0``."""
+    req: Request
+    n_steps: int                # TRUE solver steps of this request's own plan
+    nfe: int                    # TRUE network evals (plan.nfe, pre-padding)
+    deadline: float             # absolute deadline (inf when best-effort)
+    done: bool = False          # Result already emitted
+    k0: int = 0                 # group step count at this row's admission
+    solve_s0: float = 0.0       # group solve_s at this row's admission
+    wait_s: float = 0.0         # submit -> admission queue wait
+
+
+@dataclasses.dataclass
+class _Group:
+    """One in-flight stacked solve (requests admitted together or joined)."""
+    rows: list                  # list[_Row], aligned with the stacked axis
+    sig: tuple                  # member plans' (padded, unstacked) signature
+    bucket: tuple               # admission bucket key (plan.family, s_len)
+    seq_len: int                # bucketed seq_len the stacked solve runs at
+    plan: SolverPlan            # stacked, on the engine's device
+    state: SAMPLER.SamplerState
+    fn: Callable                # executor: step(params, plan, k, state, lens)
+    n_steps: int                # max live row k0 + n_steps (drain horizon)
+    compile_s: float
+    priority: int               # max member Request.priority
+    deadline: float             # min member absolute deadline (inf if none)
+    arrival: int                # admission sequence number (tie-break)
+    k: int = 0                  # steps completed
+    solve_s: float = 0.0        # accumulated solve wall-time (excl. compile)
+    skipped: int = 0            # consecutive ticks not selected (aging)
+
+    @property
+    def uids(self) -> tuple:
+        return tuple(r.req.uid for r in self.rows)
+
+
+def _wait(x: torch.Tensor) -> None:
+    """Block until the work queued on ``x``'s stream has finished (no-op
+    on the CPU, which computes eagerly)."""
+    if x.is_cuda:
+        torch.cuda.current_stream(x.device).synchronize()
+
+
+class DiffusionServeEngine:
+    """Streaming continuous-batching DEIS sampling service (see the module
+    docstring). ``serve`` drains a request list; ``submit`` + ``tick``
+    expose the scheduler directly."""
+
+    def __init__(self, params, cfg: ModelConfig, sde: Optional[SDE] = None,
+                 schedule: str = "quadratic", max_group: int = 8,
+                 steps_per_tick: int | None = None, aging_ticks: int = 8,
+                 compaction: bool = True, join: bool = True,
+                 seq_len_buckets=None, enforce_deadlines: bool = False,
+                 retire: RetirePolicy | None = None,
+                 metrics: MetricsRegistry | None = None,
+                 tracer: Tracer | None = None, device=None):
+        """Arguments as in the reference engine (without ``mesh`` and
+        ``fused``: every ``ab``-method plan takes the fused AB-step kernel),
+        plus ``device`` (None means CUDA; the parameters must already lie
+        there)."""
+        if cfg.objective != "diffusion":
+            raise ValueError("DiffusionServeEngine serves diffusion configs")
+        # repro: allow[RL003] immutable engine config; the ownership table predates the port
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.params, self.cfg = params, cfg
+        self.sde = sde or VPSDE()
+        self.schedule = schedule
+        self.max_group = max_group
+        # clamp: 0/negative would make tick() select nothing and busy-loop
+        self.steps_per_tick = None if steps_per_tick is None \
+            else max(1, steps_per_tick)
+        self.aging_ticks = max(1, aging_ticks)
+        self.compaction = compaction
+        self.join = join
+        if seq_len_buckets is not None:
+            edges = tuple(int(e) for e in seq_len_buckets)
+            if not edges or any(e < 1 for e in edges) or \
+                    list(edges) != sorted(set(edges)):
+                raise ValueError("seq_len_buckets must be strictly ascending "
+                                 f"positive edges, got {seq_len_buckets!r}")
+            seq_len_buckets = edges
+        self.seq_len_buckets = seq_len_buckets
+        self._plans: dict = {}      # (solver, nfe, eta) -> SolverPlan
+        self._compiled: dict = {}   # (signature, batch, seq_len) -> executor
+        self._pending: deque = deque()   # deque[_Pending]
+        self._active: list[_Group] = []
+        self._arrivals = 0          # admission sequence counter
+        self.enforce_deadlines = enforce_deadlines
+        self.retire = retire
+        # Results produced OUTSIDE a group step (deadline evictions,
+        # cancellations, early exits), drained into the next tick's list
+        self._boundary_results: list[Result] = []
+
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else Tracer(self.metrics)
+        reg = self.metrics
+        self._m_ticks = reg.counter(
+            "serve_ticks_total", "scheduler ticks executed")
+        self._m_wasted = reg.counter(
+            "serve_wasted_row_steps_total",
+            "steps burned on already-finished request rows")
+        self._m_joined = reg.counter(
+            "serve_joined_requests_total",
+            "requests admitted by joining an in-flight group")
+        self._m_submitted = reg.counter(
+            "serve_submitted_total", "requests accepted by submit()")
+        self._m_completed = reg.counter(
+            "serve_completed_total", "requests finished with a sample")
+        self._m_evicted = reg.counter(
+            "serve_deadline_evicted_total",
+            "requests evicted by deadline enforcement")
+        self._m_compactions = reg.counter(
+            "serve_compactions_total", "mid-flight group compactions")
+        self._m_cache_hits = reg.counter(
+            "serve_compile_cache_hits_total",
+            "executor lookups served by the executor cache")
+        self._m_cache_misses = reg.counter(
+            "serve_compile_cache_misses_total",
+            "executor lookups that built a new executor")
+        self._m_compile_s = reg.counter(
+            "serve_compile_seconds_total",
+            "cumulative executor build wall time")
+        self._g_queue = reg.gauge(
+            "serve_queue_depth", "requests pending admission")
+        self._g_groups = reg.gauge(
+            "serve_active_groups", "stacked groups in flight")
+        self._g_occupancy = reg.gauge(
+            "serve_group_occupancy",
+            "live request rows / stacked row slots across active groups")
+        self._m_cancelled = reg.counter(
+            "serve_cancelled_total", "requests retired by cancel()")
+        self._m_early = reg.counter(
+            "serve_early_exit_total",
+            "requests retired early by the RetirePolicy (converged rows)")
+        self._m_saved_nfe = reg.counter(
+            "serve_saved_nfe_total",
+            "network evals saved by early exit (budgeted minus spent)")
+        self._h_queue_wait = reg.histogram(
+            "serve_queue_wait_seconds", "submit -> admission (join or fresh)")
+        self._h_row_err = reg.histogram(
+            "serve_row_err", "local-error estimate at row retirement",
+            edges=_ERR_EDGES)
+        self._h_solve = reg.histogram(
+            "serve_solve_seconds",
+            "per-request group solve time since its own admission")
+        self._h_step = reg.histogram(
+            "serve_step_seconds", "one group step, dispatch to ready")
+        self._h_tick = reg.histogram(
+            "serve_tick_seconds", "one full scheduler tick")
+
+    # ---- int views over the registry
+    @property
+    def wasted_row_steps(self) -> int:
+        """Steps burned on already-finished rows (metric)."""
+        return int(self._m_wasted.value)
+
+    @property
+    def joined_requests(self) -> int:
+        """Requests admitted by joining an in-flight group (metric)."""
+        return int(self._m_joined.value)
+
+    # ------------------------------------------------------------- plans
+    def _plan(self, solver: str, nfe: int, eta: float | None) -> SolverPlan:
+        """The request's plan on the engine's device in float32 (the serving
+        dtype), memoised per ``(solver, nfe, eta)``."""
+        if solver == "ddim_eta" and eta is None:
+            raise ValueError("Request(solver='ddim_eta') requires an explicit "
+                             "eta= (eta=0 deterministic, eta=1 ancestral)")
+        key_ = (solver, nfe, eta)
+        if key_ not in self._plans:
+            if solver.lower() == "pndm":
+                n_grid = max(4, nfe - _PNDM_WARMUP_EXTRA)
+            else:
+                n_grid = max(1, nfe // solver_stages(solver))
+            ts = get_timesteps(self.sde, n_grid, self.schedule)
+            kw = {"eta": eta} if solver == "ddim_eta" else {}
+            if self.retire is not None:
+                # uniform request across mixed traffic: families without an
+                # embedded pair ignore it (their flag stays False)
+                kw["error_estimate"] = True
+            plan = cached_make_plan(solver, self.sde, ts, **kw)
+            plan = plan.to(self.device, torch.float32)
+            if plan.method == "ab":
+                plan = dataclasses.replace(plan, fused=True)
+            self._plans[key_] = plan
+        return self._plans[key_]
+
+    # --------------------------------------------------------- executors
+    def _executor(self, sig, plan: SolverPlan, state) -> tuple[Callable, float]:
+        """The cached single-step executor for this (signature, batch,
+        seq_len); ``k`` and the per-row true lengths are arguments, so one
+        executor serves every step of every group with this key."""
+        key_ = (sig, state.x.shape[0], state.x.shape[1])
+        if key_ in self._compiled:
+            self._m_cache_hits.inc()
+            return self._compiled[key_], 0.0
+        self._m_cache_misses.inc()
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        with self.tracer.span("compile"):
+            def run(params, plan_arg, k, st, lens):
+                with torch.no_grad():
+                    return SAMPLER.step(
+                        plan_arg, k, st,
+                        DLM.make_eps_fn(params, cfg, valid_len=lens))
+        compile_s = time.perf_counter() - t0
+        self._m_compile_s.inc(compile_s)
+        self._compiled[key_] = run
+        return run, compile_s
+
+    # -------------------------------------------------------- scheduling
+    def _bucket_len(self, seq_len: int) -> int:
+        """Bucketed solve length: the first edge >= seq_len, or the exact
+        length when no edge fits (or bucketing is off)."""
+        if self.seq_len_buckets is not None:
+            for edge in self.seq_len_buckets:
+                if seq_len <= edge:
+                    return edge
+        return seq_len
+
+    def submit(self, request: Request) -> None:
+        """Validate and enqueue; the request is admitted at the next tick.
+        Validation raises here, before the request enters the queue."""
+        if request.seq_len < 1:
+            raise ValueError(f"Request.seq_len must be >= 1, got "
+                             f"{request.seq_len}")
+        if request.nfe < 1:
+            raise ValueError(f"Request.nfe must be >= 1, got {request.nfe}")
+        plan = self._plan(request.solver, request.nfe,
+                          request.eta if request.solver == "ddim_eta" else None)
+        self._pending.append(_Pending(request, plan, time.perf_counter(),
+                                      self._bucket_len(request.seq_len)))
+        self._m_submitted.inc()
+        self._g_queue.set(len(self._pending))
+
+    @staticmethod
+    def _abs_deadline(req: Request, t_submit: float) -> float:
+        return math.inf if req.deadline_s is None else t_submit + req.deadline_s
+
+    def _group_key(self, g: _Group) -> tuple:
+        """Urgency ordering shared by ``_select`` and the boundary pass:
+        effective priority desc (starvation aging), earliest absolute
+        deadline, admission order."""
+        return (-(g.priority + g.skipped // self.aging_ticks),
+                g.deadline, g.arrival)
+
+    def _evict_expired(self, now: float) -> None:
+        """Deadline enforcement: shed pending requests and retire mid-flight
+        rows whose absolute deadline has passed (a ``deadline_exceeded``
+        Result each; the freed rows are compacted away at this boundary)."""
+        empty = np.zeros(0, np.int64)
+        still = deque()
+        while self._pending:
+            p = self._pending.popleft()
+            if self._abs_deadline(p.req, p.t_sub) < now:
+                self._m_evicted.inc()
+                self._h_queue_wait.observe(now - p.t_sub)
+                self._boundary_results.append(Result(
+                    p.req.uid, empty, 0.0, nfe=0,
+                    queue_wait_s=now - p.t_sub, deadline_exceeded=True))
+            else:
+                still.append(p)
+        self._pending = still
+        for g in list(self._active):
+            for r in g.rows:
+                if r.done or not (r.deadline < now):
+                    continue
+                r.done = True
+                self._m_evicted.inc()
+                self._h_queue_wait.observe(r.wait_s)
+                self._boundary_results.append(Result(
+                    r.req.uid, empty, g.solve_s - r.solve_s0, nfe=0,
+                    compile_s=g.compile_s, queue_wait_s=r.wait_s,
+                    deadline_exceeded=True))
+            if all(r.done for r in g.rows):
+                self._active.remove(g)
+
+    def cancel(self, uid: int) -> bool:
+        """Cancel request ``uid``: drop it from the pending queue, or retire
+        its mid-flight row (the slot recycles at the next boundary). Emits a
+        Result flagged ``cancelled=True``; False when ``uid`` is unknown."""
+        empty = np.zeros(0, np.int64)
+        now = time.perf_counter()
+        for p in list(self._pending):
+            if p.req.uid == uid:
+                self._pending.remove(p)
+                self._g_queue.set(len(self._pending))
+                self._m_cancelled.inc()
+                self._h_queue_wait.observe(now - p.t_sub)
+                self._boundary_results.append(Result(
+                    uid, empty, 0.0, nfe=0, queue_wait_s=now - p.t_sub,
+                    cancelled=True))
+                return True
+        for g in list(self._active):
+            for r in g.rows:
+                if r.done or r.req.uid != uid:
+                    continue
+                r.done = True
+                self._m_cancelled.inc()
+                self._h_queue_wait.observe(r.wait_s)
+                self._boundary_results.append(Result(
+                    uid, empty, g.solve_s - r.solve_s0, nfe=0,
+                    compile_s=g.compile_s, queue_wait_s=r.wait_s,
+                    cancelled=True))
+                if all(row.done for row in g.rows):
+                    self._active.remove(g)
+                return True
+        return False
+
+    def _decode_rows(self, g: _Group, rows: list) -> np.ndarray:
+        """Tokens of rows ``rows`` of ``g``'s iterate, on the host."""
+        idx = torch.as_tensor(rows, device=self.device)
+        toks = DLM.decode_tokens(self.params, self.cfg, g.state.x[idx])
+        # repro: allow[RL001] finished rows leave the device here by design
+        return np.asarray(toks.cpu())
+
+    def _retire_converged(self) -> None:
+        """Early-exit pass (``retire`` policy set): retire rows whose local
+        error estimate has converged, before the boundary pass rebuilds
+        groups, so a freed slot is a join slot the same tick. The decision
+        is the policy's pure per-row function of ``(err, |x|_inf)`` after at
+        least ``min_k`` own steps."""
+        pol = self.retire
+        for g in list(self._active):
+            if not g.plan.error_estimate:
+                continue
+            cand = [i for i, r in enumerate(g.rows)
+                    if not r.done and pol.min_k <= g.k - r.k0 < r.n_steps]
+            if not cand:
+                continue
+            # repro: allow[RL001] early-exit boundary: err fetch gates retirement
+            err = np.asarray(g.state.err.cpu(), np.float64)
+            if pol.norm == "rel":
+                x = g.state.x
+                # repro: allow[RL001] boundary fetch, amortized over the whole group
+                x_inf = np.asarray(x.abs().amax(dim=tuple(range(1, x.ndim))).cpu(),
+                                   np.float64)
+            else:
+                x_inf = np.zeros(len(g.rows))
+            mask = pol.converged(err[cand], x_inf[cand])
+            hit = [i for i, m in zip(cand, mask) if m]
+            if not hit:
+                continue
+            toks = self._decode_rows(g, hit)
+            for j, i in enumerate(hit):
+                r = g.rows[i]
+                r.done = True
+                spent = _spent_nfe(g.plan.method, r, g.k - r.k0)
+                self._m_completed.inc()
+                self._m_early.inc()
+                self._m_saved_nfe.inc(max(0, r.nfe - spent))
+                self._h_row_err.observe(float(err[i]))
+                self._h_queue_wait.observe(r.wait_s)
+                lat = g.solve_s - r.solve_s0
+                self._h_solve.observe(lat)
+                self._boundary_results.append(Result(
+                    r.req.uid, toks[j][:r.req.seq_len], lat, nfe=spent,
+                    compile_s=g.compile_s, queue_wait_s=r.wait_s,
+                    early_exit=True, final_err=float(err[i])))
+            if all(r.done for r in g.rows):
+                self._active.remove(g)
+
+    def _new_state(self, plans: list, pend: list, seq_len: int):
+        """Stacked initial state of fresh rows: each drawn from its own
+        request's generators at its true length."""
+        gens = DLM.request_generators([p.req.seed for p in pend], self.device)
+        return DLM.init_sample_state(
+            self.cfg, stack_plans(plans), gens, seq_len=seq_len,
+            prior_std=self.sde.prior_std(),
+            valid_lens=[p.req.seq_len for p in pend])
+
+    def _admit(self) -> None:
+        """Admit everything pending (step-boundary admission).
+
+        1. Eviction and early-exit passes (when enabled).
+        2. Boundary pass (``compaction`` on): every group carrying retired
+           rows rebuilds before its next step -- pending same-bucket
+           requests whose grids fit the group's horizon join it (``join``
+           on), and what cannot be refilled compacts to its survivors.
+        3. Fresh groups: remaining pending requests bucket by
+           ``(plan.family, bucketed seq_len)`` and chunk at ``max_group``.
+        """
+        now = time.perf_counter()
+        if self.enforce_deadlines:
+            self._evict_expired(now)
+        if self.retire is not None:
+            self._retire_converged()
+        buckets: dict = {}
+        while self._pending:
+            p = self._pending.popleft()
+            buckets.setdefault((p.plan.family, p.s_len), []).append(p)
+        self._g_queue.set(0)
+        for items in buckets.values():
+            items.sort(key=lambda it: (-it.req.priority,
+                                       self._abs_deadline(it.req, it.t_sub)))
+        if self.compaction:
+            for g in sorted(self._active, key=self._group_key):
+                if not any(r.done for r in g.rows):
+                    continue
+                cands = buckets.get(g.bucket) if self.join else None
+                if cands and self._join_group(g, cands, now):
+                    continue
+                self._compact(g, [i for i, r in enumerate(g.rows) if not r.done])
+        for (fam, s_len), items in buckets.items():
+            for i in range(0, len(items), self.max_group):
+                chunk = items[i:i + self.max_group]
+                n_max = max(p.plan.n_steps for p in chunk)
+                padded = [pad_plan(p.plan, n_max) for p in chunk]
+                rows = [_Row(req=p.req, n_steps=p.plan.n_steps,
+                             nfe=p.plan.nfe,
+                             deadline=self._abs_deadline(p.req, p.t_sub),
+                             wait_s=now - p.t_sub)
+                        for p in chunk]
+                sig = padded[0].signature
+                plan = stack_plans(padded)
+                state = self._new_state(padded, chunk, s_len)
+                fn, compile_s = self._executor(sig, plan, state)
+                reqs = [p.req for p in chunk]
+                self._arrivals += 1
+                self._active.append(_Group(
+                    rows=rows, sig=sig, bucket=(fam, s_len), seq_len=s_len,
+                    plan=plan, state=state, fn=fn,
+                    n_steps=n_max, compile_s=compile_s,
+                    priority=max(r.priority for r in reqs),
+                    deadline=min(r.deadline for r in rows),
+                    arrival=self._arrivals))
+
+    def _join_group(self, g: _Group, cands: list, now: float) -> bool:
+        """Splice pending requests into ``g`` at a compaction boundary.
+
+        Joiners come from the front of the (urgency-sorted) bucket, skipping
+        any whose grid exceeds the group's horizon. The survivors keep their
+        relative order and move whole (``take_rows``), then the padded
+        joiners are appended (``join_rows``); joiner rows record ``k0 = g.k``
+        and ``solve_s0``. Returns False when nothing could join."""
+        live = [i for i, r in enumerate(g.rows) if not r.done]
+        cap = self.max_group - len(live)
+        if cap <= 0:
+            return False
+        take, rest = [], []
+        for p in cands:
+            if len(take) < cap and p.plan.n_steps <= g.plan.n_steps:
+                take.append(p)
+            else:
+                rest.append(p)
+        if not take:
+            return False
+        cands[:] = rest
+        if len(live) != len(g.rows):
+            g.plan = take_rows(g.plan, live)
+            g.state = SAMPLER.take_state_rows(g.state, live)
+            g.rows = [g.rows[i] for i in live]
+        padded = [pad_plan(p.plan, g.plan.n_steps) for p in take]
+        g.plan = join_rows(g.plan, padded)
+        g.state = SAMPLER.join_state_rows(
+            g.state, self._new_state(padded, take, g.seq_len))
+        g.rows += [_Row(req=p.req, n_steps=p.plan.n_steps, nfe=p.plan.nfe,
+                        deadline=self._abs_deadline(p.req, p.t_sub),
+                        k0=g.k, solve_s0=g.solve_s, wait_s=now - p.t_sub)
+                   for p in take]
+        self._regroup(g)
+        self._m_joined.inc(len(take))
+        return True
+
+    def _compact(self, g: _Group, keep: list[int]) -> None:
+        """Re-pack the kept rows into a smaller (sig, batch, seq_len)
+        executor: plan rows and state rows move whole, so the survivors'
+        samples are bit-identical to an uncompacted solve."""
+        self._m_compactions.inc()
+        g.plan = take_rows(g.plan, keep)
+        g.state = SAMPLER.take_state_rows(g.state, keep)
+        g.rows = [g.rows[i] for i in keep]
+        self._regroup(g)
+
+    def _regroup(self, g: _Group) -> None:
+        """After a join or compaction: the group's horizon and urgency from
+        its live rows, and the executor for its new batch."""
+        g.n_steps = max(r.k0 + r.n_steps for r in g.rows)
+        g.priority = max(r.req.priority for r in g.rows)
+        g.deadline = min(r.deadline for r in g.rows)
+        g.fn, compile_s = self._executor(g.sig, g.plan, g.state)
+        g.compile_s += compile_s
+
+    def _select(self) -> tuple[list[_Group], list[_Group]]:
+        """Order active groups by urgency; return (stepped, skipped)."""
+        order = sorted(self._active, key=self._group_key)
+        if self.steps_per_tick is None:
+            return order, []
+        return order[:self.steps_per_tick], order[self.steps_per_tick:]
+
+    @property
+    def busy(self) -> bool:
+        """True while any request is pending admission or mid-solve, or a
+        boundary Result awaits drain."""
+        return bool(self._pending or self._active or self._boundary_results)
+
+    @property
+    def num_executors(self) -> int:
+        """Executors alive -- one per (plan.signature, batch, seq_len);
+        growth during steady-state traffic means new executors."""
+        # repro: allow[RL003] GIL-atomic len() for stats; one-tick staleness is fine
+        return len(self._compiled)
+
+    def tick(self, *, on_step=None, stream_decode: bool = False) -> list[Result]:
+        """One scheduler tick: admit (join/compact at boundaries, else fresh
+        groups), advance the selected groups one solver step each, emit
+        Results for rows that finished.
+
+        All selected group steps are dispatched before any is waited on;
+        each group's ``solve_s`` is the time from its dispatch to its step
+        being done on the device."""
+        t_tick = time.perf_counter()
+        with self.tracer.span("admit"):
+            self._admit()
+        self._m_ticks.inc()
+        finished: list[Result] = []
+        if self._boundary_results:
+            finished += self._boundary_results
+            self._boundary_results = []
+        stepped, skipped = self._select()
+        for g in skipped:
+            g.skipped += 1
+        dispatched = []
+        with self.tracer.span("dispatch"):
+            for g in stepped:
+                g.skipped = 0
+                # with compaction on, the boundary pass has already removed
+                # every retired row, so this stays zero
+                self._m_wasted.inc(sum(r.done for r in g.rows))
+                k_vec = [g.k - r.k0 for r in g.rows]
+                lens_vec = torch.as_tensor([r.req.seq_len for r in g.rows],
+                                           device=self.device)
+                t0 = time.perf_counter()
+                g.state = g.fn(self.params, g.plan, k_vec, g.state, lens_vec)
+                dispatched.append((g, t0))
+        for g, t0 in dispatched:
+            with self.tracer.span("step_wait"):
+                # the one wait per group step, after every group dispatched
+                _wait(g.state.x)
+            dt_step = time.perf_counter() - t0
+            g.solve_s += dt_step
+            self._h_step.observe(dt_step)
+            g.k += 1
+            newly = [i for i, r in enumerate(g.rows)
+                     if not r.done and r.k0 + r.n_steps == g.k]
+            stream_toks = None
+            if on_step is not None and stream_decode:
+                stream_toks = self._decode_rows(g, list(range(len(g.rows))))
+            # one host pull of the per-row error estimates serves both the
+            # step event and natural-finish final_err
+            err_v = None
+            if g.plan.error_estimate and (on_step is not None or newly):
+                # repro: allow[RL001] single err pull serves step event + final_err
+                err_v = np.asarray(g.state.err.cpu(), np.float64)
+            if on_step is not None:
+                on_step(StepEvent(
+                    uids=g.uids, k=g.k, n_steps=g.n_steps, tokens=stream_toks,
+                    row_steps=tuple(r.n_steps for r in g.rows),
+                    row_k=tuple(g.k - r.k0 for r in g.rows),
+                    row_seq_lens=tuple(r.req.seq_len for r in g.rows),
+                    row_err=tuple(err_v.tolist())
+                    if err_v is not None else None))
+            if newly:
+                new_toks = (stream_toks[newly] if stream_toks is not None
+                            else self._decode_rows(g, newly))
+                for j, i in enumerate(newly):
+                    row = g.rows[i]
+                    row.done = True
+                    # final_err is None (not +inf) when no estimate exists:
+                    # Results serialize to strict JSON
+                    f_err = None
+                    if err_v is not None and math.isfinite(err_v[i]):
+                        f_err = float(err_v[i])
+                    res = Result(
+                        row.req.uid, new_toks[j][:row.req.seq_len],
+                        g.solve_s - row.solve_s0, nfe=row.nfe,
+                        compile_s=g.compile_s, queue_wait_s=row.wait_s,
+                        final_err=f_err)
+                    self._m_completed.inc()
+                    self._h_queue_wait.observe(res.queue_wait_s)
+                    self._h_solve.observe(res.latency_s)
+                    finished.append(res)
+            if all(r.done for r in g.rows):
+                self._active.remove(g)
+        self._g_groups.set(len(self._active))
+        slots = sum(len(g.rows) for g in self._active)
+        live = sum(sum(not r.done for r in g.rows) for g in self._active)
+        self._g_occupancy.set(live / slots if slots else 0.0)
+        self._h_tick.observe(time.perf_counter() - t_tick)
+        return finished
+
+    def serve(self, requests: list[Request], *, on_step=None,
+              stream_decode: bool = False) -> list[Result]:
+        """Submit ``requests`` and run the scheduler until all solves
+        finish. Validation is all-or-nothing for this call."""
+        n0 = len(self._pending)
+        try:
+            for r in requests:
+                self.submit(r)
+        except Exception:
+            while len(self._pending) > n0:
+                self._pending.pop()
+            raise
+        results: list[Result] = []
+        while self.busy:
+            results += self.tick(on_step=on_step, stream_decode=stream_decode)
+        return results

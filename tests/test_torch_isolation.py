@@ -1,0 +1,46 @@
+"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX, jaxlib or anything of the JAX package
+``repro`` (the machine with the card has no JAX). An AST walk, so a guarded
+or function-local import is caught too."""
+import ast
+from pathlib import Path
+
+import jax  # noqa: F401  (the port's test files all import both frameworks)
+import pytest
+import torch  # noqa: F401
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module" \
+                and node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_has_the_slice_modules():
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("configs/base.py", "configs/gemma_2b.py", "core/sde.py",
+                "core/schedules.py", "core/coeffs.py", "core/plan.py",
+                "core/adaptive.py", "core/sampler.py", "kernels/runtime.py",
+                "kernels/ref.py", "kernels/deis_step.py", "kernels/ops.py",
+                "models/layers.py", "models/transformer.py", "models/convert.py",
+                "diffusion/lm.py", "obs/metrics.py", "obs/trace.py",
+                "serving/engine.py"):
+        assert (pkg / rel).is_file(), rel
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+    bad = sorted(r for r in roots if r in FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
