@@ -8,20 +8,47 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Device: the card's name, count, ``nvidia-smi`` name and power limit;
    TF32 off for float32 matmuls and convolutions.
-2. Kernel K1 (``fused_ab_step``, Triton, built into ``build/triton``): held
+2. Build: kernels K2 and K3 (CUDA C++, ``src/repro_torch/kernels/csrc``)
+   compiled by nvcc for sm_90a into ``build/kernels``, one nvcc per source,
+   started together; ptxas's registers, shared memory and spills printed.
+3. Kernel K1 (``fused_ab_step``, Triton, built into ``build/triton``): held
    against its plain PyTorch version for r in 1..4, noise on/off, error
    pair on/off, R in {1, 5} at a ragged size (rtol = atol = 1e-6: FMA
    contraction and summation order), stacked rows bitwise equal to solo
    calls; then timed with CUDA events at the main path's shape beside the
    plain version and the byte bound.
-3. Serving: gemma-2b at its published widths (18 layers, d_model 2048,
+4. Kernel K2 (``flash_attention``): held against its plain version over the
+   five shapes of the JAX kernel tests in float32 and bf16, a
+   cross-attention case (Sq != Sk) and gemma-2b's full width (B 4, S 256,
+   H 8, KV 1, D 256, bf16, bidirectional), at the JAX tests' tolerance
+   (2e-5 float32, 2e-2 bf16); then timed at gemma's shape beside the plain
+   version, the bound and ``scaled_dot_product_attention`` (the yardstick
+   only; the port never calls it).
+5. Kernel K3 (``ssd_scan``): held against its plain version over the four
+   shapes of the JAX kernel tests in float32 and bf16 and mamba2-2.7b's
+   full width (Bb 4, S 256, H 80, P 64, N 128, chunk 256, bf16 x, float32
+   a), at the JAX tests' tolerance (2e-4 float32, 5e-2 bf16); then timed
+   beside the plain version and the bound (no single library call).
+6. Serving: gemma-2b at its published widths (18 layers, d_model 2048,
    MQA 8/1 heads of 256, d_ff 16384, vocab 256000, bf16), random weights
    from a seed, through ``DiffusionServeEngine`` with a ``RetirePolicy``
    and seq_len buckets (128, 256): two staggered waves of mixed-family
    requests (so a join happens), a warm replay that must add no executor,
    K1's launch count against the ``ab`` group steps served, the
    stacked-vs-solo difference of the eps-net on the card (reported, not
-   asserted), and the card against the CPU on a reduced float32 model.
+   asserted).
+7. One-shot kernel path: ``sample_tokens(..., use_kernels=True)`` with a
+   fused tab3 plan of 10 NFE at batch 4, seq 256, on full-width gemma-2b
+   (the same weights; attention through K2) and full-width mamba2-2.7b (64
+   layers, d_model 2560, 80 SSD heads of 64, state 128, chunk 256, vocab
+   50280, bf16, random weights from seed 0; the scan through K3). Launch
+   counts asserted (K2 18 x NFE on gemma, K3 64 x NFE on mamba2, K1 one
+   per ab step); tokens and x0 compared with the same call at
+   ``use_kernels=False`` (reported); eps-forward time per NFE on both
+   routes, the kernel route's device time by kernel, peak memory.
+8. Card against CPU: the reduced float32 models on the card (kernel route)
+   against the same models on the CPU (plain versions): finite x0 of the
+   right shape that agree at 1e-3.
 
 The line before the last is the kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device.
@@ -41,8 +68,11 @@ import torch
 
 SRC = Path(__file__).resolve().parent / "src"
 K1_TOL = 1e-6          # float32: FMA contraction and summation order
+K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX kernel tests' _tol
+K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}   # the JAX ssd_scan test's
 CARD_VS_CPU_TOL = 1e-3  # reduced float32 model: cuBLAS vs CPU summation order
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 
 
 def _timer(device):
@@ -81,6 +111,36 @@ def _device_kernel_us(fn, n):
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / n for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def _kernel_times(device, tag, kname, call, plain, library=None, n=50):
+    """Per-call ms of a kernel's wrapper, its plain version and the library
+    call: CUDA events over n back-to-back calls (host clock on the CPU);
+    then, where the profiler sees device time, the kernel's own device time
+    and the summed device time of the plain version's (and the library
+    call's) kernels. Returns (kernel, plain, library-or-None)."""
+    fns = {"kernel": call, "plain": plain}
+    if library is not None:
+        fns["library"] = library
+    timed = _timer(device)
+    out = {k: timed(f, n=n) for k, f in fns.items()}
+    clock = "CUDA events" if device.type == "cuda" else "host clock"
+    print(f"{tag} per call ({clock}, {n} back-to-back calls, wrapper included): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    if device.type == "cuda":
+        dev = {k: _device_kernel_us(f, 20) for k, f in fns.items()}
+        own = [v for name, v in dev["kernel"].items() if kname in name]
+        if own and all(dev.values()):
+            out = {k: sum(d.values()) / 1e3 for k, d in dev.items()}
+            others = out["kernel"] - own[0] / 1e3
+            out["kernel"] = own[0] / 1e3
+            print(f"{tag} device time (torch.profiler): kernel {out['kernel']:.4f} ms "
+                  f"(the wrapper's other kernels {others:.4f} ms), "
+                  + ", ".join(f"{k} {v:.4f} ms over {len(dev[k])} kernels"
+                              for k, v in out.items() if k != "kernel"))
+        else:
+            print(f"{tag} device time: the profiler saw no device time; CUDA-event times kept")
+    return out["kernel"], out["plain"], out.get("library")
 
 
 def _sync(device):
@@ -157,7 +217,6 @@ def phase_k1(device):
     # the main path's shape: a group of 8 rows at seq 256, d_model 2048, r=3
     R, m, d, r = 8, 256, 2048, 3
     args, kw = _k1_inputs(gen, device, R, m, d, r, False, True)
-    timed = _timer(device)
     n_it = 200 if device.type == "cuda" else 5
     call = lambda: K.fused_ab_step(*args, **kw)
     plain = lambda: ref.fused_ab_step_ref(*args, **kw)
@@ -167,32 +226,155 @@ def phase_k1(device):
     torch.testing.assert_close(e, want_e, rtol=K1_TOL, atol=K1_TOL)
     max_err = max(max_err, (out - want).abs().max().item(),
                   (e - want_e).abs().max().item())
-    call_ms, plain_call_ms = timed(call, n=n_it), timed(plain, n=n_it)
     # each input read once, each output written once (x, r history slices,
     # the (R, 1 + 2r) float32 scalars in; x' and err out)
     nbytes = (r + 2) * R * m * d * 4 + R * (1 + 2 * r) * 4 + R * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    clock = "CUDA events" if device.type == "cuda" else "host clock"
-    print(f"K1 at R={R} M={m} D={d} r={r} with err, per call ({clock}, "
-          f"{n_it} back-to-back calls, wrapper included): kernel {call_ms:.4f} ms, "
-          f"plain {plain_call_ms:.4f} ms")
-    ms, plain_ms = call_ms, plain_call_ms
+    ms, plain_ms, _ = _kernel_times(
+        device, f"K1 at R={R} M={m} D={d} r={r} with err", "fused_ab_kernel",
+        call, plain, n=n_it)
     if device.type == "cuda":
-        dev = _device_kernel_us(call, 50)
-        dev_plain = _device_kernel_us(plain, 50)
-        k1 = [v for k, v in dev.items() if "fused_ab_kernel" in k]
-        if k1 and dev_plain:
-            ms, plain_ms = k1[0] / 1e3, sum(dev_plain.values()) / 1e3
-            print(f"K1 device time (torch.profiler): kernel {ms:.4f} ms "
-                  f"(bound / time = {bound_ms / ms:.3f}), "
-                  f"wrapper's other kernels {(sum(dev.values()) / 1e3 - ms):.4f} ms, "
-                  f"plain version {plain_ms:.4f} ms over {len(dev_plain)} kernels")
-        else:
-            print("K1 device time: the profiler saw no device time; CUDA-event times kept")
+        print(f"K1 bound / time = {bound_ms / ms:.3f}")
     print(f"K1 byte bound {bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s), "
           "library call: none")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bytes=nbytes, shape=(R, m, d, r))
+
+
+def phase_build(device):
+    """nvcc builds of K2 and K3, started together; ptxas's report."""
+    if device.type != "cuda":
+        print("build: skipped on the cpu (no nvcc; the plain versions run)")
+        return
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    paths = build.build(["flash_attention", "ssd_scan"])
+    print(f"build: {', '.join(str(p.relative_to(p.parents[2])) for p in paths.values())} "
+          f"in {time.perf_counter() - t0:.1f} s (nvcc for sm_90a, one process per source)")
+    for name in paths:
+        log = build.BUILD_DIR / f"{name}.log"
+        if log.exists():   # absent when an earlier build of the same source is reused
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()[:150]}")
+
+
+def _max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_k2(device):
+    """K2 against its plain version over the JAX test shapes, cross
+    attention and gemma's full width; then timed at gemma's shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases = [(2, 64, 64, 4, 4, 32, True, 0), (1, 128, 128, 8, 2, 64, True, 0),
+             (2, 96, 96, 4, 1, 32, True, 0), (1, 64, 64, 4, 4, 32, False, 0),
+             (1, 128, 128, 4, 2, 32, True, 32),       # the JAX kernel tests' five
+             (2, 40, 104, 4, 2, 64, True, 16)]        # cross attention, Sq != Sk
+    gemma = (4, 256, 256, 8, 1, 256, False, 0)
+    max_err, n_cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # the full width in its working type, bf16
+        for (b, sq, sk, h, kv, d, causal, window) in cases + [gemma] * (dtype == torch.bfloat16):
+            rnd = lambda *sh: torch.randn(sh, generator=gen, device=device).to(dtype)
+            q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+            got = K.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            _sync(device)
+            tol = K2_TOL[dtype]
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+            if dtype == torch.bfloat16:   # the tolerance of the kernel's working type
+                max_err = max(max_err, _max_err(got, want))
+            n_cases += 1
+    print(f"K2 check: {n_cases} cases (the JAX tests' 5 shapes and cross attention "
+          f"40x104 in float32 within 2e-5 and bf16 within 2e-2; gemma 4x256x8/1x256 "
+          f"in bf16), "
+          f"max abs err in bf16 {max_err:.3e}")
+
+    b, sq, sk, h, kv, d, causal, window = gemma
+    dtype = torch.bfloat16
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=device).to(dtype)
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+    call = lambda: K.flash_attention(q, k, v, causal=causal)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal=causal)
+    library = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True)
+    want = plain()
+    lib_err = _max_err(library().transpose(1, 2), want)
+    n_it = 100 if device.type == "cuda" else 3
+    ms, plain_ms, library_ms = _kernel_times(
+        device, "K2 at gemma's shape B=4 S=256 H=8 KV=1 D=256 bf16", "flash_fwd_kernel",
+        call, plain, library=library, n=n_it)
+    # each input read once, the output written once; QK^T and PV over the
+    # unmasked (query, key) pairs (all of them here: bidirectional)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 2 * 2 * b * h * sq * sk * d
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"
+    print(f"K2 bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B at 3.35 TB/s, "
+          f"{flops} FLOP at 989 TFLOP/s); SDPA (enable_gqa) differs from the plain "
+          f"version by {lib_err:.3e}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_k3(device):
+    """K3 against its plain version over the JAX test shapes and mamba2's
+    full width; then timed at mamba2's shape."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as K
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = [(2, 64, 2, 16, 8, 16), (1, 96, 3, 8, 16, 32), (1, 50, 2, 16, 8, 16),
+             (2, 32, 1, 32, 32, 32)]                  # the JAX kernel tests' four
+    mamba = (4, 256, 80, 64, 128, 256)
+
+    def inputs(b, s, h, p, n, dtype):
+        rnd = lambda *sh: torch.randn(sh, generator=gen, device=device)
+        a = torch.rand((b, s, h), generator=gen, device=device) * 0.299 + 0.7
+        return rnd(b, s, h, p).to(dtype), a, rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
+
+    max_err, n_cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # the full width in its working type (bf16 x, B, C; float32 a)
+        for (b, s, h, p, n, chunk) in cases + [mamba] * (dtype == torch.bfloat16):
+            args = inputs(b, s, h, p, n, dtype)
+            y, st = K.ssd_scan(*args, chunk=chunk)
+            y_w, st_w = ref.ssd_scan_ref(*args, chunk=chunk)
+            _sync(device)
+            tol = K3_TOL[dtype]
+            torch.testing.assert_close(y.float(), y_w.float(), rtol=tol, atol=tol)
+            torch.testing.assert_close(st, st_w, rtol=tol, atol=tol)
+            if dtype == torch.bfloat16:
+                max_err = max(max_err, _max_err(y, y_w), _max_err(st, st_w))
+            n_cases += 1
+    print(f"K3 check: {n_cases} cases (the JAX tests' 4 shapes in float32 within "
+          f"2e-4 and bf16 within 5e-2; mamba2 4x256x80x64, N 128, chunk 256 in bf16), "
+          f"max abs err in bf16 {max_err:.3e}")
+
+    b, s, h, p, n, chunk = mamba
+    x, a, B, C = inputs(b, s, h, p, n, torch.bfloat16)
+    call = lambda: K.ssd_scan(x, a, B, C, chunk=chunk)
+    plain = lambda: ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
+    n_it = 30 if device.type == "cuda" else 2
+    ms, plain_ms, _ = _kernel_times(
+        device, "K3 at mamba2's shape Bb=4 S=256 H=80 P=64 N=128 chunk 256 bf16",
+        "ssd_scan_kernel", call, plain, n=n_it)
+    # x, a, B, C read once; y and the float32 state written once. Operations
+    # the function needs per (batch, head) and chunk: the lower triangle of
+    # C B^T (N each) and of W x (P each), C h^T and x^T B (L N P each)
+    nbytes = 2 * (x.numel() + B.numel() + C.numel() + x.numel()) + 4 * a.numel() \
+        + 4 * b * h * p * n
+    tri = chunk * (chunk + 1) // 2
+    flops = b * h * (s // chunk) * (2 * tri * (n + p) + 2 * 2 * chunk * n * p)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"
+    print(f"K3 bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B at 3.35 TB/s, "
+          f"{flops} FLOP at 989 TFLOP/s); library call: none")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _requests(Request):
@@ -403,6 +585,117 @@ def phase_batch_invariance(device, cfg, params, sde):
           f"equal tokens {np.mean(eq):.4f}, bitwise {max(diffs) == 0.0}")
 
 
+def _reset_counts():
+    from repro_torch.kernels import deis_step, flash_attention, ssd_scan
+    for fn in (deis_step.fused_ab_step, flash_attention.flash_attention,
+               ssd_scan.ssd_scan):
+        fn.launches = 0
+
+
+def _counts():
+    from repro_torch.kernels import deis_step, flash_attention, ssd_scan
+    return dict(K1=deis_step.fused_ab_step.launches,
+                K2=flash_attention.flash_attention.launches,
+                K3=ssd_scan.ssd_scan.launches)
+
+
+def _init_model(arch, device, reduced):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch).with_(objective="diffusion")
+    if reduced:
+        cfg = cfg.reduced()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device)
+    _sync(device)
+    n_params = sum(p.numel() for p in _leaves(params))
+    ssm = (f", ssm {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads of "
+           f"{cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, chunk {cfg.ssm.chunk_size}"
+           if cfg.ssm else f", heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}")
+    print(f"model: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}{ssm}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}, {n_params / 1e9:.3f} B params, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def phase_one_shot(device, cfg, params, reduced, nfe=10, batch=4):
+    """sample_tokens(use_kernels=True) with a fused tab3 plan of ``nfe``
+    steps: the launch counts of this run, its tokens and x0 against the same
+    call on the plain route, the eps forward per NFE on both routes and the
+    kernel route's device time by kernel."""
+    from repro_torch.core import VPSDE, get_timesteps, make_plan
+    from repro_torch.diffusion import lm as DLM
+    seq = 64 if reduced else 256
+    sde = VPSDE()
+    plan = dataclasses.replace(make_plan("tab3", sde, get_timesteps(sde, nfe)), fused=True)
+    mixers = "K3" if cfg.arch_type == "ssm" else "K2"
+    want = {"K1": plan.n_steps, "K2": 0, "K3": 0}
+    want[mixers] = cfg.n_layers * nfe
+    runs = {}
+    with torch.no_grad():
+        for use_kernels in (True, False):
+            gens = DLM.request_generators([7], device)[0]
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            toks, x0 = DLM.sample_tokens(params, cfg, plan, gens, batch=batch, seq_len=seq,
+                                         prior_std=sde.prior_std(), use_kernels=use_kernels)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            peak = (torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda"
+                    else float("nan"))
+            if tuple(toks.shape) != (batch, seq) or not torch.isfinite(x0).all() \
+                    or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"{cfg.name}: bad one-shot output {tuple(toks.shape)}")
+            print(f"one-shot {cfg.name} use_kernels={use_kernels}: tab3 {nfe} NFE, batch "
+                  f"{batch}, seq {seq} in {wall:.3f} s (first call of the route, builds "
+                  f"included); launches {counts}; peak memory {peak:.2f} GiB")
+            runs[use_kernels] = (toks, x0, counts)
+    counts = runs[True][2]
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"{cfg.name}: kernel-route launches {counts} != {want}")
+    if device.type == "cuda" and runs[False][2] != dict(want, K2=0, K3=0):
+        raise AssertionError(f"{cfg.name}: plain route launched {runs[False][2]}")
+    (tk, xk, _), (tp, xp, _) = runs[True], runs[False]
+    eq = (tk == tp).float().mean().item()
+    dx = (xk - xp).abs().max().item()
+    print(f"one-shot {cfg.name}: kernel route vs plain route on this device: equal tokens "
+          f"{eq:.4f}, max abs x0 diff {dx:.3e} (max |x0| {xp.abs().max().item():.3e}); "
+          f"expected launches {want} {'held' if device.type == 'cuda' else '(not counted on the cpu)'}")
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=device)
+    t = torch.full((batch,), 0.5, device=device)
+    timed = _timer(device)
+    n = 5 if device.type == "cuda" else 1
+    eps_ms = {}
+    with torch.no_grad():
+        for use_kernels in (True, False):
+            eps_fn = DLM.make_eps_fn(params, cfg, use_kernels=use_kernels)
+            eps_ms[use_kernels] = timed(lambda: eps_fn(x, t), n=n, warm=1)
+        print(f"eps forward per NFE of {cfg.name} at B={batch} S={seq}: kernel route "
+              f"{eps_ms[True]:.3f} ms, plain route {eps_ms[False]:.3f} ms")
+        if device.type == "cuda":
+            eps_fn = DLM.make_eps_fn(params, cfg, use_kernels=True)
+            dev = _device_kernel_us(lambda: eps_fn(x, t), 2)
+            groups = {"K2": ("flash_fwd_kernel",), "K3": ("ssd_scan_kernel",),
+                      "matmul": ("gemm", "nvjet", "xmma", "cutlass")}
+            share = {g: 0.0 for g in list(groups) + ["other"]}
+            for name, us in dev.items():
+                g = next((g for g, keys in groups.items()
+                          if any(key in name.lower() for key in keys)), "other")
+                share[g] += us
+            busy = sum(dev.values()) / 1e3
+            print(f"eps forward breakdown of {cfg.name} (torch.profiler, device time per "
+                  f"forward): busy {busy:.3f} ms of {eps_ms[True]:.3f} ms (idle share "
+                  f"{1 - busy / eps_ms[True]:.4f}); "
+                  + ", ".join(f"{g} {us / 1e3:.3f} ms" for g, us in share.items()))
+    return dict(counts=counts, eq=eq, dx=dx, eps_ms=eps_ms)
+
+
 def phase_card_vs_cpu(device):
     """The reduced float32 model on the card against the same model on the
     CPU (plain versions): finite x0 of the right shape that agree."""
@@ -430,6 +723,28 @@ def phase_card_vs_cpu(device):
     torch.testing.assert_close(x_dev, x_cpu, rtol=CARD_VS_CPU_TOL, atol=CARD_VS_CPU_TOL)
     print(f"card vs cpu (reduced float32 gemma, fused tab3, 8 steps): max abs x0 "
           f"diff {diff:.3e} within {CARD_VS_CPU_TOL}")
+    # the one-shot kernel route: K2 / K3 and K1 on the card, plain versions on the cpu
+    for arch in ("gemma_2b", "mamba2_2p7b"):
+        cfg = get_config(arch).reduced().with_(objective="diffusion")
+        p_cpu = init_params(cfg, 4, "cpu")
+        p_dev = _to(p_cpu, device)
+        plan = dataclasses.replace(make_plan("tab3", sde, get_timesteps(sde, 6)), fused=True)
+        x_T = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(6))
+        _reset_counts()
+        t_dev, x_dev = DLM.sample_tokens(p_dev, cfg, plan, None, batch=2, seq_len=40,
+                                         prior_std=1.0, use_kernels=True, x_T=x_T.to(device))
+        counts = _counts()
+        t_cpu, x_cpu = DLM.sample_tokens(p_cpu, cfg, plan, None, batch=2, seq_len=40,
+                                         prior_std=1.0, use_kernels=True, x_T=x_T)
+        x_dev = x_dev.cpu()
+        mixer = "K2" if arch == "gemma_2b" else "K3"
+        if not torch.isfinite(x_dev).all() or counts[mixer] == 0 or counts["K1"] == 0:
+            raise AssertionError(f"{arch}: card kernel route not finite or not launched {counts}")
+        torch.testing.assert_close(x_dev, x_cpu, rtol=CARD_VS_CPU_TOL, atol=CARD_VS_CPU_TOL)
+        print(f"card vs cpu (reduced float32 {cfg.name}, one-shot kernel route, fused tab3, "
+              f"6 steps, seq 40; launches {counts}): max abs x0 diff "
+              f"{(x_dev - x_cpu).abs().max().item():.3e} within {CARD_VS_CPU_TOL}, "
+              f"equal tokens {(t_dev.cpu() == t_cpu).float().mean().item():.4f}")
 
 
 def _to(tree, device):
@@ -455,21 +770,32 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     t_start = time.perf_counter()
     kind, count = phase_device(device)
+    phase_build(device)
     k1 = phase_k1(device)
-    # launches: K1's count over the cold serve (reset just before it)
+    k2 = phase_k2(device)
+    k3 = phase_k3(device)
+    # each path's launches: the counts are set to 0 just before it and read after
     cfg, params, sde, launches = phase_serve(device, args.reduced)
     phase_step_breakdown(device, cfg, params, sde, k1)
     phase_batch_invariance(device, cfg, params, sde)
+    gemma = phase_one_shot(device, cfg, params, args.reduced)
+    del params
+    cfg, params = _init_model("mamba2_2p7b", device, args.reduced)
+    mamba = phase_one_shot(device, cfg, params, args.reduced)
     del params
     phase_card_vs_cpu(device)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    rows = [("fused_ab_step", "triton", "deis_step.py", "deis_step.py:45", launches, k1),
+            ("flash_attention", "cuda", "csrc/flash_attention.cu", "flash_attention.py:41",
+             gemma["counts"]["K2"], k2),
+            ("ssd_scan", "cuda", "csrc/ssd_scan.cu", "ssd_scan.py:40",
+             mamba["counts"]["K3"], k3)]
     print(json.dumps({"kernels": [{
-        "name": "fused_ab_step", "route": "triton",
-        "source": "src/repro_torch/kernels/deis_step.py",
-        "replaces": "src/repro/kernels/deis_step.py:45",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}))
+        "name": name, "route": route, "source": f"src/repro_torch/kernels/{src}",
+        "replaces": f"src/repro/kernels/{site}", "launches": n,
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k.get("bound_by", "bytes"),
+        "library_ms": k.get("library_ms")} for name, route, src, site, n, k in rows]}))
     if device.type != "cuda":
         print("rehearsal ok (cpu): no device result")
         return 0

@@ -26,17 +26,20 @@ from ..models import transformer as T
 X0_SCALE = 25.0    # x0 = embed * X0_SCALE so data std ~ 0.5
 
 
-def make_eps_fn(params, cfg: ModelConfig, *, valid_len=None):
+def make_eps_fn(params, cfg: ModelConfig, *, valid_len=None,
+                use_kernels: bool = False):
     """eps_theta(x, t) closure for the DEIS solvers; x: (B, S, D), t scalar
     or (B,). Computes the eps head only (no vocabulary logits).
 
     ``valid_len``: optional (B,) int per-row true length for bucket-padded
     batches, threaded to attention so a row's trajectory does not depend on
-    the bucket's tail padding."""
+    the bucket's tail padding. ``use_kernels``: attention through kernel K2
+    (without ``valid_len``) and the Mamba2 scan through K3."""
     def eps_fn(x, t):
         t_b = t.to(torch.float32).expand(x.shape[0])
         out = T.forward(params, cfg, embeds=x, t_cond=t_b, causal=False,
-                        valid_len=valid_len, logits=False)
+                        valid_len=valid_len, logits=False,
+                        use_kernels=use_kernels)
         return out["eps"].to(x.dtype)
     return eps_fn
 
@@ -48,6 +51,33 @@ def decode_tokens(params, cfg: ModelConfig, x0):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x0 / X0_SCALE) @ head.to(torch.float32)
     return torch.argmax(logits, dim=-1)
+
+
+def sample_tokens(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
+                  batch: int, seq_len: int, prior_std: float,
+                  use_kernels: bool = False, hooks=None, x_T=None, noise=None):
+    """Generate a batch of token sequences with one (unstacked) DEIS plan in
+    one call, on the parameters' device. Returns ``(tokens, x0)``.
+
+    The counterpart of ``repro.diffusion.lm.sample_tokens``; the reference's
+    ``use_pallas`` is ``use_kernels`` here (the port launches no Pallas):
+    attention runs through kernel K2, the Mamba2 scan through K3, and a
+    ``fused`` ``ab`` plan through K1. ``gens`` is a ``(prior, solve)`` pair
+    of ``torch.Generator``s on that device (the counterpart of splitting the
+    reference's key): the prior ``N(0, prior_std^2)`` of shape
+    ``(batch, seq_len, d_model)`` is drawn from the first, a stochastic
+    plan's noise from the second. ``x_T`` replaces the prior draw and
+    ``noise`` (indexable by step) the solve noise, so a test can hand both
+    frameworks the same numbers; ``gens`` may then be None."""
+    device = params["embed"].device
+    plan = plan.to(device)
+    g_prior, g_solve = gens if gens is not None else (None, None)
+    if x_T is None:
+        x_T = torch.randn((batch, seq_len, cfg.d_model), generator=g_prior,
+                          device=device, dtype=torch.float32) * prior_std
+    eps_fn = make_eps_fn(params, cfg, use_kernels=use_kernels)
+    x0 = SAMPLER.sample(plan, eps_fn, x_T, g_solve, hooks=hooks, noise=noise)
+    return decode_tokens(params, cfg, x0), x0
 
 
 def request_generators(seeds, device) -> list:

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from .deis_step import deis_step as _deis_step
 from .deis_step import fused_ab_step as _fused_ab_step
+from .flash_attention import flash_attention as _flash_attention
+from .ssd_scan import ssd_scan as _ssd_scan
 
 
 def deis_step(x, eps_hist, psi, coeffs):
@@ -16,3 +18,11 @@ def fused_ab_step(x, hist, psi, coeffs, *, s=None, noise=None,
     # stacked serving entry: per-row [psi, C, s?, E?] + optional noise/err
     return _fused_ab_step(x, hist, psi, coeffs, s=s, noise=noise,
                           err_coeffs=err_coeffs)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    return _flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(x, a, B, C, *, chunk=128):
+    return _ssd_scan(x, a, B, C, chunk=chunk)

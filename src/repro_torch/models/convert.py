@@ -32,13 +32,16 @@ def _map(fn, tree):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
-    """The reference's dense-arch parameter tree (numpy leaves) as the
-    port's params on ``device`` (``None`` means CUDA)."""
+    """The reference's parameter tree of a dense or ssm arch (numpy leaves)
+    as the port's params on ``device`` (``None`` means CUDA). Each layer is
+    the block's ``slot0`` subtree as it stands: ``attn``/``norm2``/``mlp``
+    for dense layers, ``ssm`` (float32 ``A_log``, ``dt_bias``, ``D``; conv
+    weights ``(K, C)``) for ssm layers."""
     device = resolve_device(device)
     out = {}
     for name, sub in tree.items():
         if name == "blocks":
-            layer = sub["slot0"]   # dense: one layer per block
+            layer = sub["slot0"]   # dense and ssm: one layer per block
             out["blocks"] = [
                 _map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device), layer)
                 for i in range(cfg.n_layers)]

@@ -1,6 +1,6 @@
 """Backbone building blocks for the dense archs: norms, RoPE, attention
-(GQA/MQA, sliding window, per-row key masking, logit softcap), GLU MLPs and
-the diffusion time embedding.
+(GQA/MQA, sliding window, per-row key masking, logit softcap; kernel K2 on
+request), GLU MLPs and the diffusion time embedding.
 
 The counterpart of the dense half of ``repro.models.layers`` (no KV cache,
 no MoE yet). Plain functions over parameter dicts with the reference's
@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels import ops
 
 
 def matmul(x, w):
@@ -114,12 +115,16 @@ def init_attention(gen, cfg: ModelConfig, dtype, device):
 
 
 def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
-              valid_len=None):
+              valid_len=None, use_kernels=False):
     """Full-sequence multi-head attention with GQA + RoPE + optional SWA.
 
     valid_len: optional (B,) int -- per-row true sequence length when rows
     are right-padded to a bucketed S; key positions >= valid_len are masked
     out so a row's content does not depend on the bucket it landed in.
+    use_kernels: with ``valid_len`` None, the scores run through kernel K2
+    (:func:`repro_torch.kernels.ops.flash_attention`), which reads the KV
+    heads in place; the reference's ``use_pallas`` condition. K2 has no
+    softcap, so a config with ``logit_softcap`` raises rather than drop it.
     Returns the attention block's output (B, S, d_model).
     """
     b, s, _ = x.shape
@@ -130,6 +135,13 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if use_kernels and valid_len is None:
+        if cfg.logit_softcap:
+            raise ValueError("kernel K2 has no logit softcap; run "
+                             f"{cfg.name} with use_kernels=False")
+        out = ops.flash_attention(q, k, v, causal=causal,
+                                  window=cfg.sliding_window)
+        return matmul(out.reshape(b, s, cfg.q_dim), params["wo"])
     n_rep = cfg.n_heads // max(1, k.shape[2])
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)

@@ -1,0 +1,168 @@
+"""Mamba2 / SSD mixer (arXiv:2405.21060) for the ssm archs.
+
+The counterpart of ``repro.models.ssm`` for full sequences (training,
+prefill and the diffusion eps-net): the in-projection, the depthwise causal
+convolution, the SSD chunked scan and the gated RMS norm. State-space
+duality with one scalar decay per head::
+
+    h_t = a_t h_{t-1} + B_t x_t^T      (per head: h in R^{P x N})
+    y_t = C_t h_t
+
+:func:`ssd_chunked` is the reference's plain chunked form; with
+``use_kernels=True`` :func:`ssm_forward` calls kernel K3
+(:func:`repro_torch.kernels.ops.ssd_scan`) instead, as the reference's
+``use_pallas`` does. The O(1) decode cache belongs to autoregressive
+serving and is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+
+
+def ssm_dims(cfg: ModelConfig):
+    """``(d_inner, n_heads)`` of the mixer."""
+    d_inner = cfg.ssm.expand * cfg.d_model
+    return d_inner, d_inner // cfg.ssm.head_dim
+
+
+def init_ssm(gen, cfg: ModelConfig, dtype, device):
+    """Random mixer parameters with the reference's shapes and scales."""
+    d = cfg.d_model
+    d_inner, n_heads = ssm_dims(cfg)
+    n = cfg.ssm.state_dim
+    s = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    rand = lambda shape: torch.randn(shape, generator=gen, device=device)
+    # in_proj produces [z (gate), x, B, C, dt] along features
+    proj_out = 2 * d_inner + 2 * n + n_heads
+    return {
+        "in_proj": (rand((d, proj_out)) * s).to(dtype),
+        "conv_w": (rand((cfg.ssm.conv_width, d_inner + 2 * n)) * 0.1).to(dtype),
+        "conv_b": torch.zeros((d_inner + 2 * n,), dtype=dtype, device=device),
+        "A_log": torch.zeros((n_heads,), dtype=f32, device=device),   # A = -exp(A_log)
+        "dt_bias": torch.full((n_heads,), math.log(math.e - 1), dtype=f32, device=device),
+        "D": torch.ones((n_heads,), dtype=f32, device=device),
+        "norm_scale": torch.zeros((d_inner,), dtype=dtype, device=device),
+        "out_proj": (rand((d_inner, d)) * s / math.sqrt(2 * cfg.n_layers)).to(dtype),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt):
+    d_inner, n_heads = ssm_dims(cfg)
+    n = cfg.ssm.state_dim
+    return torch.split(zxbcdt, [d_inner, d_inner + 2 * n, n_heads], dim=-1)
+
+
+def _causal_conv(xbc, w, b):
+    """Depthwise causal convolution of width K over a full sequence (zero
+    history). xbc: (B, S, C); w: (K, C). Returns silu(conv) in xbc's dtype."""
+    k = w.shape[0]
+    xp = F.pad(xbc, (0, 0, k - 1, 0))                      # (B, S + K - 1, C)
+    s = xbc.shape[1]
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    out = out + b
+    return F.silu(out.to(torch.float32)).to(xbc.dtype)
+
+
+def ssd_chunked(x, a, B, C, chunk: int):
+    """The SSD chunked scan in plain tensor operations (the reference's
+    ``ssd_chunked``: no clamp before the log, float32 products).
+
+    x: (B, S, H, P); a: (B, S, H) per-step decay in (0, 1); B, C: (B, S, N)
+    shared across heads. Returns y (B, S, H, P) float32 and the final state
+    (B, H, P, N) float32.
+    """
+    bsz, s, h, p = x.shape
+    n = B.shape[-1]
+    if s % chunk:
+        # pad to a chunk multiple with identity steps (a = 1, x = 0) at the end
+        pad = chunk - s % chunk
+        y, final = ssd_chunked(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                               F.pad(a, (0, 0, 0, pad), value=1.0),
+                               F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad)),
+                               chunk)
+        return y[:, :s], final
+    f32 = torch.float32
+    nc = s // chunk
+    xr = x.reshape(bsz, nc, chunk, h, p).to(f32)
+    ar = a.reshape(bsz, nc, chunk, h)
+    Br = B.reshape(bsz, nc, chunk, n).to(f32)
+    Cr = C.reshape(bsz, nc, chunk, n).to(f32)
+
+    cum = torch.cumsum(torch.log(ar.to(f32)), dim=2)        # (B, nc, L, H) inclusive
+    # within chunk: y_intra[t] = sum_{u<=t} C_t . B_u exp(cum_t - cum_u) x_u
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B, nc, T, U, H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    scores = torch.einsum("bctn,bcun->bctu", Cr, Br)
+    w = scores[..., None] * decay
+    y_intra = torch.einsum("bctuh,bcuhp->bcthp", w, xr)
+
+    # chunk summaries: S_c = sum_u exp(cum_last - cum_u) B_u x_u^T
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)       # (B, nc, L, H)
+    chunk_state = torch.einsum("bcuh,bcun,bcuhp->bchpn", decay_to_end, Br, xr)
+    a_chunk = torch.exp(cum[:, :, -1, :])                   # (B, nc, H)
+
+    # recurrence across chunks; prev[c] is the state entering chunk c
+    state = torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * a_chunk[:, c, :, None, None] + chunk_state[:, c]
+    prev_states = torch.stack(prev, dim=1)                  # (B, nc, H, P, N)
+
+    # inter-chunk: y_inter[t] = C_t . (exp(cum_t) S_{c-1})
+    y_inter = torch.einsum("bctn,bcth,bchpn->bcthp", Cr, torch.exp(cum), prev_states)
+    return (y_intra + y_inter).reshape(bsz, s, h, p), state
+
+
+def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = False):
+    """The full Mamba2 mixer over a whole sequence. x: (B, S, D).
+
+    ``use_kernels`` routes the scan through kernel K3 (the reference's
+    ``use_pallas``); otherwise :func:`ssd_chunked` runs it. Returns
+    ``(out, {"conv", "state"})`` like the reference; ``cache`` (the decode
+    path) is not ported yet and raises."""
+    if cache is not None:
+        raise NotImplementedError("the SSM decode cache belongs to autoregressive "
+                                  "serving, which is not ported yet")
+    bsz, s, _ = x.shape
+    scfg = cfg.ssm
+    d_inner, n_heads = ssm_dims(cfg)
+    n, p = scfg.state_dim, scfg.head_dim
+    f32 = torch.float32
+
+    z, xbc, dt = _split_proj(cfg, x @ params["in_proj"])
+    dt = F.softplus(dt.to(f32) + params["dt_bias"])          # (B, S, H)
+    a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
+
+    k = params["conv_w"].shape[0]
+    # the last K - 1 inputs of the zero-padded sequence (the reference's conv state)
+    conv_state = (F.pad(xbc[:, -(k - 1):], (0, 0, max(0, k - 1 - s), 0))
+                  if k > 1 else None)
+    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
+    xh = xs.reshape(bsz, s, n_heads, p)
+    chunk = min(scfg.chunk_size, s)
+    if use_kernels:
+        y, state = ops.ssd_scan(xh.contiguous(), a.contiguous(), B.contiguous(),
+                                C.contiguous(), chunk=chunk)
+    else:
+        y, state = ssd_chunked(xh, a, B, C, chunk=chunk)
+
+    y = y + params["D"][None, None, :, None] * xh.to(f32)
+    y = y.reshape(bsz, s, d_inner)
+    # gated RMS norm (mamba2)
+    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    y = y * (1.0 + params["norm_scale"].to(f32))
+    y = y * F.silu(z.to(f32))
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out, {"conv": conv_state, "state": state}

@@ -1,10 +1,13 @@
-"""Backbone assembly for the dense archs: init + forward.
+"""Backbone assembly for the dense and ssm archs: init + forward.
 
-The counterpart of ``repro.models.transformer`` for ``arch_type="dense"``
-in ``mode="train"`` (full sequence, no KV cache). The reference stacks the
+The counterpart of ``repro.models.transformer`` for ``arch_type`` "dense"
+(attention + MLP layers) and "ssm" (Mamba2 mixer layers, no MLP) in
+``mode="train"`` (full sequence, no KV cache). The reference stacks the
 layers' parameters on a leading ``n_blocks`` axis and scans over them; here
 ``params["blocks"]`` is a list of per-layer dicts (the reference's ``slot0``
-subtree of each block) and a Python loop walks it.
+subtree of each block) and a Python loop walks it. ``use_kernels`` sends
+attention to kernel K2 and the Mamba2 scan to kernel K3 (the reference's
+``use_pallas``).
 
 Objectives: ``diffusion`` (bidirectional, time-conditioned denoiser -- the
 paper's eps_theta; see :mod:`repro_torch.diffusion.lm`) and ``ar``.
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
+from . import ssm as S
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -32,9 +36,9 @@ def _dtype(cfg: ModelConfig):
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet (dense only)")
+            f"arch_type {cfg.arch_type!r} is not ported yet (dense and ssm only)")
 
 
 def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
@@ -57,6 +61,10 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     d = cfg.d_model
     blocks = []
     for _ in range(cfg.n_layers):
+        if cfg.arch_type == "ssm":      # mamba2 layers have no separate MLP
+            blocks.append({"norm1": zeros(d),
+                           "ssm": S.init_ssm(gen, cfg, dtype, device)})
+            continue
         blocks.append({"norm1": zeros(d),
                        "attn": L.init_attention(gen, cfg, dtype, device),
                        "norm2": zeros(d),
@@ -92,14 +100,15 @@ def _time_mlp(tm, te):
 
 def forward(params, cfg: ModelConfig, *, embeds, t_cond=None,
             causal: Optional[bool] = None, valid_len=None,
-            logits: bool = True) -> dict:
+            logits: bool = True, use_kernels: bool = False) -> dict:
     """Full-sequence forward over continuous inputs. Returns a dict with
     ``hidden``, ``eps`` (diffusion objective) and ``logits`` (float32, only
     when ``logits=True``).
 
     embeds: (B, S, d_model); t_cond: scalar or (B,) diffusion time;
     valid_len: optional (B,) per-row true length for bucket-padded batches
-    (padded tail keys are masked out)."""
+    (padded tail keys are masked out); use_kernels: attention through K2
+    (when ``valid_len`` is None) and the Mamba2 scan through K3."""
     _check_arch(cfg)
     dtype = _dtype(cfg)
     if causal is None:
@@ -115,8 +124,11 @@ def forward(params, cfg: ModelConfig, *, embeds, t_cond=None,
 
     for bp in params["blocks"]:
         hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
+        if "ssm" in bp:
+            h = h + S.ssm_forward(bp["ssm"], cfg, hn, use_kernels=use_kernels)[0]
+            continue
         h = h + L.attention(bp["attn"], cfg, hn, positions, causal=causal,
-                            valid_len=valid_len)
+                            valid_len=valid_len, use_kernels=use_kernels)
         hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
         h = h + L.mlp(bp["mlp"], cfg, hn)
 

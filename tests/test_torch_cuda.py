@@ -1,11 +1,15 @@
-"""Tests of the port that need the CUDA card: the Triton kernel against its
-plain version, and a stacked fused solve through the kernel. They import
-only torch and the port, so they run where JAX is absent:
+"""Tests of the port that need the CUDA card: each hand-written kernel
+against its plain version on the card (K1 in Triton; K2 and K3 in CUDA C++,
+built with nvcc at first use), and a stacked fused solve through K1. They
+import only torch and the port, so they run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Without a card they skip. Tolerance: float32 rtol = atol = 1e-6 (FMA
-contraction and summation order); stacked rows are held bitwise."""
+Without a card they skip. Tolerances: K1 float32 rtol = atol = 1e-6 (FMA
+contraction and summation order), stacked rows held bitwise; K2 and K3 at
+the JAX kernel tests' own tolerances (K2 2e-5 float32 and 2e-2 bf16, K3
+2e-4 float32 and 5e-2 bf16: other summation orders, a bf16 rounding of the
+output that a last-bit difference can flip)."""
 import sys
 from pathlib import Path
 
@@ -15,7 +19,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.kernels import deis_step as K  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as SS  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -24,7 +30,8 @@ TOL = dict(rtol=1e-6, atol=1e-6)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernel runs only on the card)")
+        pytest.skip("needs a CUDA device (the hand-written kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions in full float32
     return torch.device("cuda")
 
 
@@ -57,3 +64,62 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         K.fused_ab_step(x, torch.zeros(1, 4, 2, 4, device=cuda).transpose(1, 2),
                         torch.zeros(2, device=cuda), torch.zeros(2, 1, device=cuda))
+
+
+def _tol(dtype, f32, bf16):
+    return dict(rtol=bf16, atol=bf16) if dtype == torch.bfloat16 else dict(rtol=f32, atol=f32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
+    (2, 64, 64, 4, 4, 32, True, 0),
+    (1, 128, 128, 8, 2, 64, True, 0),      # GQA
+    (2, 96, 96, 4, 1, 32, True, 0),        # MQA, ragged tiles
+    (1, 64, 64, 4, 4, 32, False, 0),       # bidirectional
+    (1, 128, 128, 4, 2, 32, True, 32),     # sliding window
+    (1, 5, 40, 2, 1, 32, True, 0),         # cross attention, Sq < Sk
+    (2, 33, 47, 4, 2, 128, True, 7),       # ragged, window, D 128
+    (4, 256, 256, 8, 1, 256, False, 0),    # gemma-2b's full width
+])
+def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
+    n = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    q, k, v = n(b, sq, h, d), n(b, sk, kv, d), n(b, sk, kv, d)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    assert FA.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, 2e-5, 2e-2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 64, 2, 16, 8, 16),
+    (1, 96, 3, 8, 16, 32),
+    (1, 50, 2, 16, 8, 16),      # seq not a chunk multiple
+    (2, 32, 1, 32, 32, 32),
+    (1, 300, 4, 64, 128, 256),  # mamba2's head and state at chunk 256, padded
+])
+def test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + h + p)
+    r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    x, B, C = r(b, s, h, p).to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(dtype)
+    a = torch.rand((b, s, h), generator=g, device=cuda) * 0.299 + 0.7
+    before = SS.ssd_scan.launches
+    y, st = SS.ssd_scan(x, a, B, C, chunk=chunk)
+    assert SS.ssd_scan.launches == before + 1
+    y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = _tol(dtype, 2e-4, 5e-2)
+    torch.testing.assert_close(y.float(), y_w.float(), **tol)
+    torch.testing.assert_close(st, st_w, **tol)
+
+
+def test_cuda_kernels_reject_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(*(torch.zeros(1, 8, 1, 48, device=cuda) for _ in range(3)))
+    with pytest.raises(ValueError, match="state"):
+        SS.ssd_scan(torch.zeros(1, 8, 2, 16, device=cuda), torch.ones(1, 8, 2, device=cuda),
+                    torch.zeros(1, 8, 256, device=cuda), torch.zeros(1, 8, 256, device=cuda))

@@ -33,9 +33,12 @@ def test_port_has_the_slice_modules():
                 "core/schedules.py", "core/coeffs.py", "core/plan.py",
                 "core/adaptive.py", "core/sampler.py", "kernels/runtime.py",
                 "kernels/ref.py", "kernels/deis_step.py", "kernels/ops.py",
+                "kernels/build.py", "kernels/flash_attention.py",
+                "kernels/ssd_scan.py", "kernels/csrc/flash_attention.cu",
+                "kernels/csrc/ssd_scan.cu", "configs/mamba2_2p7b.py",
                 "models/layers.py", "models/transformer.py", "models/convert.py",
-                "diffusion/lm.py", "obs/metrics.py", "obs/trace.py",
-                "serving/engine.py"):
+                "models/ssm.py", "diffusion/lm.py", "obs/metrics.py",
+                "obs/trace.py", "serving/engine.py"):
         assert (pkg / rel).is_file(), rel
 
 

@@ -1,7 +1,10 @@
-"""The port's dense eps-network against the JAX package's, with the
-reference's own weights carried over (``params_from_numpy``), on
-``gemma_2b.reduced()`` in the diffusion objective (2 layers, d_model 256,
-MQA 4/1 heads of 32, GeGLU).
+"""The port's eps-networks against the JAX package's, with the reference's
+own weights carried over (``params_from_numpy``), on ``gemma_2b.reduced()``
+(2 layers, d_model 256, MQA 4/1 heads of 32, GeGLU) and
+``mamba2_2p7b.reduced()`` (2 Mamba2 layers, d_model 256, 32 heads of 16,
+state 16, chunk 16) in the diffusion objective, on the plain route and on
+the kernel route (the reference's ``use_pallas=True``, its Pallas kernels
+in interpret mode).
 
 Tolerances: float32 rtol = atol = 1e-5 (matmul summation order);
 bfloat16 atol = 3e-2 (the frameworks round to bf16 at different places,
@@ -12,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import get_config as ref_get_config
 from repro.configs.gemma_2b import get_config as ref_config
 from repro.diffusion import lm as RLM
 from repro.models import layers as RL
@@ -28,6 +32,14 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 def _models(dtype="float32"):
     rcfg = ref_config().reduced().with_(objective="diffusion", dtype=dtype)
     pcfg = get_config("gemma_2b").reduced().with_(objective="diffusion", dtype=dtype)
+    rp = ref_init(rcfg, jax.random.PRNGKey(0))
+    pp = params_from_numpy(jax.tree.map(np.asarray, rp), pcfg, "cpu")
+    return rcfg, pcfg, rp, pp
+
+
+def _arch_models(arch):
+    rcfg = ref_get_config(arch).reduced().with_(objective="diffusion")
+    pcfg = get_config(arch).reduced().with_(objective="diffusion")
     rp = ref_init(rcfg, jax.random.PRNGKey(0))
     pp = params_from_numpy(jax.tree.map(np.asarray, rp), pcfg, "cpu")
     return rcfg, pcfg, rp, pp
@@ -146,3 +158,52 @@ class _no_raise:
 
     def __exit__(self, *exc):
         return False
+
+
+@pytest.mark.parametrize("arch,use_kernels", [
+    ("mamba2_2p7b", False), ("mamba2_2p7b", True), ("gemma_2b", True)])
+def test_eps_fn_kernel_route_matches_reference(arch, use_kernels):
+    """The eps forward of mamba2 (both routes) and gemma through K2 against
+    the reference's forward with ``use_pallas`` set alike, at float32
+    rtol = atol = 1e-5. S = 40 is not a multiple of mamba2's chunk 16."""
+    rcfg, pcfg, rp, pp = _arch_models(arch)
+    x, t = _x(b=2, s=40, seed=4), np.array([0.8, 0.3], np.float32)
+    want = RLM.make_eps_fn(rp, rcfg, use_pallas=use_kernels)(jnp.asarray(x), jnp.asarray(t))
+    got = PLM.make_eps_fn(pp, pcfg, use_kernels=use_kernels)(
+        torch.from_numpy(x), torch.from_numpy(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_ssm_params_from_numpy_leaf_by_leaf():
+    """SSM layers cross over as ``{"norm1", "ssm"}`` per layer (no MLP, no
+    norm2), every leaf equal, with the reference's dtypes: float32
+    ``A_log``/``dt_bias``/``D`` in a bf16 model, conv weights (K, C)."""
+    rcfg = ref_get_config("mamba2_2p7b").reduced().with_(dtype="bfloat16")
+    pcfg = get_config("mamba2_2p7b").reduced().with_(dtype="bfloat16")
+    rp = jax.tree.map(np.asarray, ref_init(rcfg, jax.random.PRNGKey(1)))
+    pp = params_from_numpy(rp, pcfg, "cpu")
+    assert len(pp["blocks"]) == pcfg.n_layers
+    mine = PT.init_params(pcfg, 0, "cpu")
+    for i, layer in enumerate(pp["blocks"]):
+        assert set(layer) == {"norm1", "ssm"} == set(mine["blocks"][i])
+        assert set(layer["ssm"]) == set(rp["blocks"]["slot0"]["ssm"])
+        for k, v in rp["blocks"]["slot0"]["ssm"].items():
+            got = layer["ssm"][k]
+            assert tuple(got.shape) == v.shape[1:], k
+            assert got.dtype == mine["blocks"][i]["ssm"][k].dtype, k
+            np.testing.assert_array_equal(got.float().numpy(), v[i].astype(np.float32))
+        np.testing.assert_array_equal(layer["norm1"].float().numpy(),
+                                      rp["blocks"]["slot0"]["norm1"][i].astype(np.float32))
+    assert pp["blocks"][0]["ssm"]["A_log"].dtype == torch.float32
+    assert tuple(pp["blocks"][0]["ssm"]["conv_w"].shape) == (
+        pcfg.ssm.conv_width, 2 * pcfg.d_model + 2 * pcfg.ssm.state_dim)
+    assert set(pp) == set(mine)
+
+
+def test_softcap_is_refused_on_the_kernel_route():
+    rcfg, pcfg, rp, pp = _models()
+    cfg = pcfg.with_(logit_softcap=30.0)
+    x, t = torch.from_numpy(_x(seed=6)), torch.tensor(0.5)
+    PLM.make_eps_fn(pp, cfg)(x, t)      # the plain route applies softcap
+    with pytest.raises(ValueError, match="softcap"):
+        PLM.make_eps_fn(pp, cfg, use_kernels=True)(x, t)
