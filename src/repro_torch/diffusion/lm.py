@@ -34,7 +34,7 @@ def make_eps_fn(params, cfg: ModelConfig, *, valid_len=None,
     ``valid_len``: optional (B,) int per-row true length for bucket-padded
     batches, threaded to attention so a row's trajectory does not depend on
     the bucket's tail padding. ``use_kernels``: attention through kernel K2
-    (without ``valid_len``) and the Mamba2 scan through K3."""
+    (which refuses ``valid_len``) and the Mamba2 scan through K3."""
     def eps_fn(x, t):
         t_b = t.to(torch.float32).expand(x.shape[0])
         out = T.forward(params, cfg, embeds=x, t_cond=t_b, causal=False,

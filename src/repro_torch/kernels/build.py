@@ -25,6 +25,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -74,3 +75,16 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built and loaded at
+    first use), bound with ``argtypes`` and an int result: the CUDA error
+    of its launch."""
+    key = (name, symbol)
+    if key not in _bound:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return _bound[key]

@@ -32,7 +32,6 @@
 // registers: 2 x D/16 floats a thread (32 at D = 256).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 
 namespace {
 
@@ -43,11 +42,9 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) { *out = __float2bfloat16(x); }
-__device__ __forceinline__ void from_f32(float x, __half* out) { *out = __float2half(x); }
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -210,7 +207,7 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. Returns cudaGetLastError() after
+// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after
 // the launch (0 on success); the caller raises on anything else.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int B, int sq, int sk, int H, int KV, int D,
@@ -219,7 +216,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     switch (dtype) {
         case 0: return launch_dim<float>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         case 1: return launch_dim<__nv_bfloat16>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
-        case 2: return launch_dim<__half>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -37,7 +37,6 @@
 // shared memory for P <= 64, N <= 128, L <= 256.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 
 namespace {
 
@@ -54,11 +53,9 @@ constexpr size_t SMEM_FLOATS =
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
 __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) { *out = __float2bfloat16(x); }
-__device__ __forceinline__ void from_f32(float x, __half* out) { *out = __float2half(x); }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(
@@ -285,7 +282,7 @@ cudaError_t launch(const void* x, const void* a, const void* B, const void* C, v
 
 }  // namespace
 
-// dtype (of x, B, C and y): 0 float32, 1 bfloat16, 2 float16. Limits: P <= 64,
+// dtype (of x, B, C and y): 0 float32, 1 bfloat16. Limits: P <= 64,
 // N <= 128, 1 <= L <= 256. Returns cudaGetLastError() after the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* B, const void* C,
                             void* y, void* state, int dtype, int Bb, int S, int H, int P,
@@ -295,7 +292,6 @@ extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* B, const v
     switch (dtype) {
         case 0: return launch<float>(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
         case 1: return launch<__nv_bfloat16>(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
-        case 2: return launch<__half>(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -28,31 +28,17 @@ from . import build, ref
 from .runtime import use_kernel
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernel's instantiations
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535                  # B * H rides on grid axis 1
 # flash_attention_fwd(q, k, v, out, dtype, B, Sq, Sk, H, KV, D, causal,
 #                     window, scale, stream)
 ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
 
-_fn = None
-
-
-def _kernel():
-    """The C entry point, built and bound at first launch."""
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
 
 def _check(q, k, v, window) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes float32, bfloat16 or "
-                        f"float16 q, k, v of one dtype, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 q, "
+                        f"k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
         raise ValueError(f"need q (B, Sq, H, D) and k, v (B, Sk, KV, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -94,7 +80,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if not use_kernel(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     with torch.cuda.device(q.device):
-        return _launch(_kernel(), q, k, v, causal, window,
+        fn = build.entry("flash_attention", "flash_attention_fwd", ARGTYPES)
+        return _launch(fn, q, k, v, causal, window,
                        torch.cuda.current_stream().cuda_stream)
 
 

@@ -29,28 +29,15 @@ from . import build, ref
 from .runtime import use_kernel
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ssd_scan_fwd(x, a, B, C, y, state, dtype, Bb, S, H, P, N, L, stream)
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-
-_fn = None
-
-
-def _kernel():
-    """The C entry point, built and bound at first launch."""
-    global _fn
-    if _fn is None:
-        fn = build.load("ssd_scan").ssd_scan_fwd
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _check(x, a, B, C, chunk) -> None:
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
-        raise TypeError(f"ssd_scan kernel takes float32, bfloat16 or float16 "
-                        f"x, B, C of one dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
+        raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x, B, C "
+                        f"of one dtype, got {x.dtype}, {B.dtype}, {C.dtype}")
     if a.dtype != torch.float32:
         raise TypeError(f"a must be float32, got {a.dtype}")
     if x.ndim != 4 or a.ndim != 3 or B.ndim != 3 or tuple(B.shape) != tuple(C.shape):
@@ -96,7 +83,8 @@ def ssd_scan(x, a, B, C, *, chunk: int = 128):
     if not use_kernel(x, a, B, C):
         return ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
     with torch.cuda.device(x.device):
-        return _launch(_kernel(), x, a, B, C, chunk,
+        fn = build.entry("ssd_scan", "ssd_scan_fwd", ARGTYPES)
+        return _launch(fn, x, a, B, C, chunk,
                        torch.cuda.current_stream().cuda_stream)
 
 

@@ -121,10 +121,12 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     valid_len: optional (B,) int -- per-row true sequence length when rows
     are right-padded to a bucketed S; key positions >= valid_len are masked
     out so a row's content does not depend on the bucket it landed in.
-    use_kernels: with ``valid_len`` None, the scores run through kernel K2
+    use_kernels: the scores run through kernel K2
     (:func:`repro_torch.kernels.ops.flash_attention`), which reads the KV
-    heads in place; the reference's ``use_pallas`` condition. K2 has no
-    softcap, so a config with ``logit_softcap`` raises rather than drop it.
+    heads in place. K2 has no padding operand and no softcap, so
+    ``valid_len`` or a config with ``logit_softcap`` raises rather than run
+    the plain route or drop the softcap (the reference's ``use_pallas``
+    takes K2 only with ``valid_len`` None).
     Returns the attention block's output (B, S, d_model).
     """
     b, s, _ = x.shape
@@ -135,7 +137,10 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if use_kernels and valid_len is None:
+    if use_kernels:
+        if valid_len is not None:
+            raise ValueError("kernel K2 has no per-row key length; run "
+                             "valid_len with use_kernels=False")
         if cfg.logit_softcap:
             raise ValueError("kernel K2 has no logit softcap; run "
                              f"{cfg.name} with use_kernels=False")

@@ -108,7 +108,7 @@ def forward(params, cfg: ModelConfig, *, embeds, t_cond=None,
     embeds: (B, S, d_model); t_cond: scalar or (B,) diffusion time;
     valid_len: optional (B,) per-row true length for bucket-padded batches
     (padded tail keys are masked out); use_kernels: attention through K2
-    (when ``valid_len`` is None) and the Mamba2 scan through K3."""
+    (which refuses ``valid_len``) and the Mamba2 scan through K3."""
     _check_arch(cfg)
     dtype = _dtype(cfg)
     if causal is None:

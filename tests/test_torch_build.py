@@ -1,0 +1,32 @@
+"""The port's CUDA build module on the CPU: a missing nvcc raises (nothing
+falls back), and ``build.entry`` binds a C entry point once, with the
+wrapper's argument types and an int result."""
+import ctypes
+import types
+
+import pytest
+
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ssd_scan as SS
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "_bound", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.entry("ssd_scan", "ssd_scan_fwd", SS.ARGTYPES)
+
+
+def test_entry_binds_once(monkeypatch):
+    lib = types.SimpleNamespace(flash_attention_fwd=types.SimpleNamespace())
+    loads = []
+    monkeypatch.setattr(build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(build, "_bound", {})
+    fn = build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES)
+    assert build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES) is fn
+    assert loads == ["flash_attention"]
+    assert fn.argtypes == FA.ARGTYPES and fn.restype is ctypes.c_int

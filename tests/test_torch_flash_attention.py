@@ -100,6 +100,9 @@ def test_binding_matches_the_c_entry_point():
     (dict(q=torch.zeros(1, 8, 2, 48)), "head dim"),
     (dict(k=torch.zeros(1, 8, 3, 32), v=torch.zeros(1, 8, 3, 32)), "H % KV"),
     (dict(q=torch.zeros(1, 8, 2, 32, dtype=torch.float64)), "float32"),
+    (dict(q=torch.zeros(1, 8, 2, 32, dtype=torch.float16), k=torch.zeros(
+        1, 8, 1, 32, dtype=torch.float16), v=torch.zeros(1, 8, 1, 32, dtype=torch.float16)),
+     "float32 or bfloat16"),
     (dict(v=torch.zeros(1, 9, 1, 32)), "need q"),
     (dict(q=torch.zeros(1, 2, 8, 32).transpose(1, 2)), "contiguous"),
 ])

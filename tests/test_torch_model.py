@@ -207,3 +207,14 @@ def test_softcap_is_refused_on_the_kernel_route():
     PLM.make_eps_fn(pp, cfg)(x, t)      # the plain route applies softcap
     with pytest.raises(ValueError, match="softcap"):
         PLM.make_eps_fn(pp, cfg, use_kernels=True)(x, t)
+
+
+def test_valid_len_is_refused_on_the_kernel_route():
+    """K2 has no per-row key length: a padded batch on the kernel route
+    raises rather than run the plain attention unseen."""
+    rcfg, pcfg, rp, pp = _models()
+    x, t = torch.from_numpy(_x(seed=7)), torch.tensor(0.5)
+    valid_len = torch.tensor([16, 12, 9])
+    PLM.make_eps_fn(pp, pcfg, valid_len=valid_len)(x, t)
+    with pytest.raises(ValueError, match="key length"):
+        PLM.make_eps_fn(pp, pcfg, valid_len=valid_len, use_kernels=True)(x, t)

@@ -133,6 +133,9 @@ def test_binding_matches_the_c_entry_point():
     (dict(B=torch.zeros(1, 8, 129), C=torch.zeros(1, 8, 129)), "state"),
     (dict(a=torch.zeros(1, 8, 2, dtype=torch.bfloat16)), "a must be float32"),
     (dict(B=torch.zeros(1, 8, 4, dtype=torch.bfloat16)), "one dtype"),
+    (dict(x=torch.zeros(1, 8, 2, 16, dtype=torch.float16), B=torch.zeros(
+        1, 8, 4, dtype=torch.float16), C=torch.zeros(1, 8, 4, dtype=torch.float16)),
+     "float32 or bfloat16"),
     (dict(a=torch.zeros(1, 8, 3)), "do not fit"),
     (dict(x=torch.zeros(1, 2, 8, 16).transpose(1, 2)), "contiguous"),
     (dict(x=torch.zeros(1, 300, 2, 16), a=torch.zeros(1, 300, 2), B=torch.zeros(1, 300, 4),
