@@ -4,8 +4,9 @@ load them with ctypes.
 Each source is compiled by ``nvcc`` straight to a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), for
 ``sm_90a``, into ``build/kernels`` in the checkout (ignored by git). The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt rather than confused with an old build. ``nvcc``'s
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+rather than confused with an old build. ``nvcc``'s
 output, with ptxas's register and shared-memory report, is kept beside the
 library as ``<name>.log``. A missing ``nvcc`` or a failed compile raises:
 nothing falls back to a plain version.
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to, keyed by its source and flags."""
-    text = (CSRC / f"{name}.cu").read_bytes() + " ".join(FLAGS).encode()
+    """Where ``csrc/<name>.cu`` is built to, keyed by its source, the
+    shared headers and the flags."""
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    text += " ".join(FLAGS).encode()
     return BUILD_DIR / f"lib{name}-{hashlib.sha256(text).hexdigest()[:16]}.so"
 
 

@@ -5,56 +5,73 @@
 // Same function: q (B, Sq, H, D) and k, v (B, Sk, KV, D) in the JAX
 // layouts, query positions offset by Sk - Sq, keys masked by padding,
 // causality and the window with -1e30, running max / denominator /
-// accumulator in float32, output acc / max(l, 1e-30) in q's dtype.
+// accumulator in float32, output acc / max(l, 1e-30) in q's dtype. The KV
+// head of query head h is h / (H / KV): K and V are read in place, never
+// repeated. Key tiles wholly outside the causal / window band of a block's
+// queries are skipped; they would add nothing.
 //
 // What bounds it on the card: at the shapes the one-shot path gives it
 // (gemma-2b: B 4, S 256, H 8, KV 1, D 256, bf16) the function moves 9.4 MB
 // and does 2.1 GFLOP, so its least time is the bytes (2.8 us at 3.35 TB/s).
-// This first version computes in float32 on the CUDA cores (no tensor
-// cores): every product is the exact float32 product the reference forms,
-// and the probabilities stay float32 into the PV product, as in the Pallas
-// body. So it is bound by float32 issue and shared-memory traffic, far
-// above the byte bound; wgmma and TMA are later work.
 //
-// Design. One block of 256 threads (a 16 x 16 grid) owns BQ = 32 query rows
-// of one (batch, head). The KV head is h / (H / KV): K and V are read in
-// place, never repeated. The block walks the key tiles of BK = 32 rows that
-// its queries can see (tiles wholly outside the causal / window band are
-// skipped; they would add nothing). Per tile:
-//   S = Q K^T * scale      each thread 2 x 2 of the 32 x 32 tile, over D
-//   mask, row max and row sum by half-warp shuffles (a row's 16 threads
-//   are the lanes of one half-warp), online rescale of the accumulator
-//   O = alpha O + P V      each thread 2 rows x D/16 columns of O
-// Q, K and V tiles are held in shared memory as float32 with a padded row
-// stride (D + 1) so that the 16 rows a warp reads fall in distinct banks;
-// at D = 256 that is 100 KB of dynamic shared memory, so the kernel sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize. The accumulator lives in
-// registers: 2 x D/16 floats a thread (32 at D = 256).
+// Two kernels, chosen by the operands' dtype (the `dtype` argument of
+// flash_attention_fwd):
+//
+// * bfloat16 -> flash_fwd_mma_kernel, on the tensor cores. One block of 4
+//   warps owns 64 query rows (16 a warp) of one (batch, head); at gemma's
+//   shape that is 128 blocks, one wave. Q, K and V stay bf16 in shared
+//   memory, rows padded by 16 bytes so that ldmatrix's 8 row addresses fall
+//   in distinct banks. K and V tiles of BK rows (64, or 32 at D 256 where
+//   the output accumulator takes 128 registers a thread) are filled by
+//   16-byte cp.async copies, double-buffered: tile j + 1 loads while tile j
+//   multiplies. Per tile and warp:
+//     S = Q K^T   mma.sync m16n8k16 over D, Q by ldmatrix, K by ldmatrix
+//                 (its rows are the product's columns), float32 accumulator
+//     masks (padding, causal, window) on the accumulator fragments, scale,
+//     online max / sum / rescale in float32 with quad shuffles (a fragment
+//     row lives in the 4 lanes of a quad)
+//     O += P V    P rounded to bf16 once, straight from the S accumulators
+//                 (the m16n8 accumulator layout is the m16n8k16 A layout,
+//                 two n8 tiles at a time), V by ldmatrix.trans
+//   The products of two bf16 values are exact in the float32 accumulator,
+//   so S loses only summation order; P's one rounding to bf16 is what
+//   FlashAttention-2 does (about 1e-4 on outputs of about 0.1 at N(0, 1)
+//   inputs, against the bf16 check's 2e-2).
+//
+// * float32 -> flash_fwd_kernel, on the CUDA cores. Tensor cores in bf16 or
+//   TF32 cannot meet the float32 check (2e-5), so float32 operands keep
+//   this kernel: one block of 256 threads (a 16 x 16 grid) owns BQ = 32
+//   query rows and walks key tiles of BK = 32 rows. Per tile:
+//     S = Q K^T * scale      each thread 2 x 2 of the 32 x 32 tile, over D
+//     mask, row max and row sum by half-warp shuffles (a row's 16 threads
+//     are the lanes of one half-warp), online rescale of the accumulator
+//     O = alpha O + P V      each thread 2 rows x D/16 columns of O
+//   Q, K and V tiles are held in shared memory with a padded row stride
+//   (D + 1) so that the 16 rows a warp reads fall in distinct banks; at
+//   D = 256 that is 100 KB of dynamic shared memory. The accumulator lives
+//   in registers: 2 x D/16 floats a thread (32 at D = 256).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
+
+#include "ptx.cuh"
 
 namespace {
 
-constexpr int BQ = 32;        // query rows per block
-constexpr int BK = 32;        // key rows per tile
-constexpr int THREADS = 256;  // 16 x 16
+constexpr int BQ = 32;        // float32 kernel: query rows per block
+constexpr int BK = 32;        // float32 kernel: key rows per tile
+constexpr int THREADS = 256;  // float32 kernel: 16 x 16
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) { *out = __float2bfloat16(x); }
 
 template <int D>
 constexpr size_t smem_bytes() {
     return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
-        const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-        T* __restrict__ out, int H, int KV, int sq, int sk, int causal, int window,
+        const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+        float* __restrict__ out, int H, int KV, int sq, int sk, int causal, int window,
         float scale) {
     extern __shared__ float smem[];
     float* qs = smem;                    // BQ x (D + 1)
@@ -70,15 +87,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const int q_off = sk - sq;
     const long long q_stride = (long long)H * D;    // between sequence positions
     const long long kv_stride = (long long)KV * D;
-    const T* qb = q + ((long long)b * sq * H + h) * D;
-    const T* kb = k + ((long long)b * sk * KV + kvh) * D;
-    const T* vb = v + ((long long)b * sk * KV + kvh) * D;
-    T* ob = out + ((long long)b * sq * H + h) * D;
+    const float* qb = q + ((long long)b * sq * H + h) * D;
+    const float* kb = k + ((long long)b * sk * KV + kvh) * D;
+    const float* vb = v + ((long long)b * sk * KV + kvh) * D;
+    float* ob = out + ((long long)b * sq * H + h) * D;
 
     for (int e = tid; e < BQ * D; e += THREADS) {
         const int r = e / D, d = e % D;
         const int s = q0 + r;
-        qs[r * (D + 1) + d] = s < sq ? to_f32(qb[s * q_stride + d]) : 0.f;
+        qs[r * (D + 1) + d] = s < sq ? qb[s * q_stride + d] : 0.f;
     }
 
     float m[2], l[2], o[2][D / 16];
@@ -101,8 +118,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
             const int r = e / D, d = e % D;
             const int s = k0 + r;
             const bool in = s < sk;
-            ks[r * (D + 1) + d] = in ? to_f32(kb[s * kv_stride + d]) : 0.f;
-            vs[r * D + d] = in ? to_f32(vb[s * kv_stride + d]) : 0.f;
+            ks[r * (D + 1) + d] = in ? kb[s * kv_stride + d] : 0.f;
+            vs[r * D + d] = in ? vb[s * kv_stride + d] : 0.f;
         }
         __syncthreads();
 
@@ -173,49 +190,269 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
         const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int j = 0; j < D / 16; ++j)
-            from_f32(o[i][j] / den, &ob[s * q_stride + tx + 16 * j]);
+            ob[s * q_stride + tx + 16 * j] = o[i][j] / den;
     }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int sq, int sk, int H, int KV, int causal, int window, float scale,
-                   cudaStream_t stream) {
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel
+
+constexpr int MQ = 64;             // query rows per block, 16 a warp
+constexpr int MMA_THREADS = 128;   // 4 warps
+
+template <int D>
+struct MmaTile {
+    static constexpr int BK = D == 256 ? 32 : 64;   // key rows per tile
+    static constexpr int LD = D + 8;                // row stride in bf16: 16 bytes of padding
+    static constexpr size_t SMEM = sizeof(__nv_bfloat16) * LD * (MQ + 4 * BK);  // Q, 2 x (K, V)
+};
+
+// rows [row0, row0 + rows) of one head of a (seq, heads, D) operand into a
+// tile of row stride D + 8; rows at or past lim are zeros. vec: every row
+// start is 16-byte aligned, so the copies are 16-byte cp.async (else plain
+// element stores)
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long stride, int row0, int rows, int lim,
+                                          bool vec) {
+    constexpr int LD = D + 8, CH = D / 8;    // 16-byte chunks a row
+    if (vec) {
+        for (int c = threadIdx.x; c < rows * CH; c += MMA_THREADS) {
+            const int r = c / CH, col = (c % CH) * 8;
+            const bool in = row0 + r < lim;
+            cp_async_16(dst + r * LD + col, in ? src + (row0 + r) * stride + col : src, in);
+        }
+    } else {
+        for (int e = threadIdx.x; e < rows * D; e += MMA_THREADS) {
+            const int r = e / D, col = e % D;
+            dst[r * LD + col] = row0 + r < lim ? src[(row0 + r) * stride + col]
+                                               : __float2bfloat16(0.f);
+        }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
+        const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H, int KV,
+        int sq, int sk, int causal, int window, float scale, int vec) {
+    constexpr int TK = MmaTile<D>::BK, LD = MmaTile<D>::LD;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // MQ x LD
+    __nv_bfloat16* ks = qs + MQ * LD;                                   // 2 stages x TK x LD
+    __nv_bfloat16* vs = ks + 2 * TK * LD;                               // 2 stages x TK x LD
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int q0 = blockIdx.x * MQ;
+    const int b = blockIdx.y / H, h = blockIdx.y % H;
+    const int kvh = h / (H / KV);
+    const int q_off = sk - sq;
+    const long long q_stride = (long long)H * D, kv_stride = (long long)KV * D;
+    const __nv_bfloat16* qb = q + ((long long)b * sq * H + h) * D;
+    const __nv_bfloat16* kb = k + ((long long)b * sk * KV + kvh) * D;
+    const __nv_bfloat16* vb = v + ((long long)b * sk * KV + kvh) * D;
+    __nv_bfloat16* ob = out + ((long long)b * sq * H + h) * D;
+
+    // key tiles this block's queries can see (positions q_off + q0 .. + MQ - 1)
+    int k_lo = 0, k_hi = sk;
+    if (causal) k_hi = min(sk, q_off + q0 + MQ);
+    if (window) k_lo = max(0, q_off + q0 - window + 1);
+    const int t_begin = k_lo / TK, t_end = (k_hi + TK - 1) / TK;
+
+    if (t_begin < t_end) {
+        load_rows<D>(qs, qb, q_stride, q0, MQ, sq, vec);
+        load_rows<D>(ks, kb, kv_stride, t_begin * TK, TK, sk, vec);
+        load_rows<D>(vs, vb, kv_stride, t_begin * TK, TK, sk, vec);
+        cp_async_commit();
+    }
+
+    // this thread's two query rows: g and g + 8 of the warp's 16
+    const int qpos[2] = {q_off + q0 + warp * 16 + g, q_off + q0 + warp * 16 + g + 8};
+    auto visible = [&](int kpos, int qp) {
+        return kpos < sk && (!causal || kpos <= qp) && (!window || kpos > qp - window);
+    };
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+    for (int kt = t_begin; kt < t_end; ++kt) {
+        const int stage = (kt - t_begin) & 1;
+        if (kt + 1 < t_end) {   // the next tile loads while this one multiplies
+            const int nxt = (stage ^ 1) * TK * LD;
+            load_rows<D>(ks + nxt, kb, kv_stride, (kt + 1) * TK, TK, sk, vec);
+            load_rows<D>(vs + nxt, vb, kv_stride, (kt + 1) * TK, TK, sk, vec);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const __nv_bfloat16* kst = ks + stage * TK * LD;
+        const __nv_bfloat16* vst = vs + stage * TK * LD;
+
+        // S = Q K^T: 16 rows x TK keys a warp
+        float s[TK / 8][4];
+#pragma unroll
+        for (int j = 0; j < TK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t a[4];
+            ldmatrix_x4(a, qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int nb = 0; nb < TK / 16; ++nb) {
+                uint32_t bk[4];
+                ldmatrix_x4(bk, kst + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
+                                    + kk * 16 + ((lane >> 3) & 1) * 8);
+                mma_bf16_16816(s[2 * nb], a, bk[0], bk[1]);
+                mma_bf16_16816(s[2 * nb + 1], a, bk[2], bk[3]);
+            }
+        }
+
+        // masks, scale, online softmax: element e of tile j is row e / 2,
+        // key kt * TK + 8 j + 2 t4 + e % 2; a row's 4 threads are a quad
+        const int key0 = kt * TK + 2 * t4;
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                s[j][e] = visible(key0 + 8 * j + (e & 1), qpos[r]) ? s[j][e] * scale : NEG_INF;
+                mx[r] = fmaxf(mx[r], s[j][e]);
+            }
+        float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            mx[r] = fmaxf(m[r], mx[r]);                 // the new running max
+            alpha[r] = expf(m[r] - mx[r]);
+            m[r] = mx[r];
+        }
+#pragma unroll
+        for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                const float p = visible(key0 + 8 * j + (e & 1), qpos[r])
+                                    ? expf(s[j][e] - m[r]) : 0.f;
+                s[j][e] = p;
+                psum[r] += p;
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+            l[r] = alpha[r] * l[r] + psum[r];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+            o[j][0] *= alpha[0];
+            o[j][1] *= alpha[0];
+            o[j][2] *= alpha[1];
+            o[j][3] *= alpha[1];
+        }
+
+        // O += P V: P's accumulators, rounded to bf16, are the A fragments
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) {
+            const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                                   pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                                   pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                   pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+            for (int nb = 0; nb < D / 16; ++nb) {
+                uint32_t bv[4];
+                ldmatrix_x4_trans(bv, vst + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                                          + nb * 16 + (lane >> 4) * 8);
+                mma_bf16_16816(o[2 * nb], a, bv[0], bv[1]);
+                mma_bf16_16816(o[2 * nb + 1], a, bv[2], bv[3]);
+            }
+        }
+        __syncthreads();   // every warp is done with this stage before it refills
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int srow = q0 + warp * 16 + g + 8 * r;
+        if (srow >= sq) continue;
+        const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<uint32_t*>(ob + srow * q_stride + 8 * j + 2 * t4) =
+                pack_bf16x2(o[j][2 * r] / den, o[j][2 * r + 1] / den);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B, int sq,
+                       int sk, int H, int KV, int causal, int window, float scale,
+                       cudaStream_t stream) {
     const size_t smem = smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((sq + BQ - 1) / BQ, B * H);
-    flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), H, KV, sq, sk, causal, window, scale);
+    flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), H, KV, sq, sk, causal, window,
+        scale);
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void* out,
-                       int B, int sq, int sk, int H, int KV, int causal, int window,
-                       float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int sq,
+                       int sk, int H, int KV, int causal, int window, float scale,
+                       cudaStream_t stream) {
+    const size_t smem = MmaTile<D>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+                      | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+    const dim3 grid((sq + MQ - 1) / MQ, B * H);
+    flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, KV, sq, sk,
+        causal, window, scale, vec);
+    return cudaGetLastError();
+}
+
+template <bool MMA>
+cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void* out, int B,
+                       int sq, int sk, int H, int KV, int causal, int window, float scale,
+                       cudaStream_t st) {
+#define FA_LAUNCH(DIM)                                                                     \
+    return MMA ? launch_mma<DIM>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st) \
+               : launch_f32<DIM>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st)
     switch (D) {
-        case 32: return launch<T, 32>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, stream);
-        case 64: return launch<T, 64>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, stream);
-        case 128: return launch<T, 128>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, stream);
-        case 256: return launch<T, 256>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, stream);
+        case 32: FA_LAUNCH(32);
+        case 64: FA_LAUNCH(64);
+        case 128: FA_LAUNCH(128);
+        case 256: FA_LAUNCH(256);
         default: return cudaErrorInvalidValue;
     }
+#undef FA_LAUNCH
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after
-// the launch (0 on success); the caller raises on anything else.
+// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
+// kernel). Returns cudaGetLastError() after the launch (0 on success); the
+// caller raises on anything else.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int dtype, int B, int sq, int sk, int H, int KV, int D,
                                    int causal, int window, float scale, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return launch_dim<float>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
-        case 1: return launch_dim<__nv_bfloat16>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
+        case 0: return launch_dim<false>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
+        case 1: return launch_dim<true>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -1,5 +1,5 @@
-"""K2: blocked online-softmax attention (GQA, causal, sliding window), as a
-hand-written CUDA C++ kernel for Hopper (``csrc/flash_attention.cu``).
+"""K2: blocked online-softmax attention (GQA, causal, sliding window), as
+hand-written CUDA C++ kernels for Hopper (``csrc/flash_attention.cu``).
 
 Replaces the Pallas kernel ``repro.kernels.flash_attention._kernel`` behind
 ``flash_attention`` (``src/repro/kernels/flash_attention.py``), with the
@@ -10,12 +10,16 @@ q's dtype.
 
 What bounds it on the card: bytes at the one-shot path's shapes (gemma-2b,
 B 4, S 256, H 8, KV 1, D 256, bf16: 9.4 MB against 2.1 GFLOP, 2.8 us at
-3.35 TB/s). The kernel computes in float32 on the CUDA cores, as the
-reference does, so it runs far above that bound; the source says how its
-tiles, shared memory and registers are laid out. Its times are in PERF.md.
+3.35 TB/s). The dtype picks the kernel (:data:`ROUTES`): bf16 operands run
+on the tensor cores (``mma.sync``, bf16 products into float32, the
+probabilities rounded to bf16 once before PV); float32 operands run on the
+CUDA cores in float32 throughout, since bf16 or TF32 tensor cores cannot
+meet the float32 check. The source says how each lays out its tiles; the
+times are in PERF.md.
 
-A CUDA tensor launches the kernel (``flash_attention.launches`` counts the
-launches); a CPU tensor takes :func:`repro_torch.kernels.ref.flash_attention_ref`.
+A CUDA tensor launches the kernel of its route (``flash_attention.launches``
+counts every launch, ``flash_attention.route_launches`` each route's); a
+CPU tensor takes :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from .runtime import use_kernel
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernel's instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype launches: flash_fwd_mma_kernel or flash_fwd_kernel
+ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _MAX_GRID_Y = 65535                  # B * H rides on grid axis 1
 # flash_attention_fwd(q, k, v, out, dtype, B, Sq, Sk, H, KV, D, causal,
 #                     window, scale, stream)
@@ -71,6 +77,7 @@ def _launch(fn, q, k, v, causal: bool, window: int, stream) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[ROUTES[q.dtype]] += 1
     return out
 
 
@@ -86,3 +93,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES.values(), 0)

@@ -1,4 +1,4 @@
-"""K3: the Mamba2 SSD chunked scan, as a hand-written CUDA C++ kernel for
+"""K3: the Mamba2 SSD chunked scan, as hand-written CUDA C++ kernels for
 Hopper (``csrc/ssd_scan.cu``).
 
 Replaces the Pallas kernel ``repro.kernels.ssd_scan._kernel`` behind
@@ -11,13 +11,17 @@ state (Bb, H, P, N) in float32.
 What bounds it on the card: bytes at the one-shot path's shapes
 (mamba2-2.7b, Bb 4, S 256, H 80, P 64, N 128, chunk 256, bf16: 32.3 MB
 against 6.7 GFLOP of lower-triangle work, 9.6 us at 3.35 TB/s). One block
-per (batch, head) walks the chunks in order with the float32 state in
-shared memory; each chunk is cut into 64-step tiles so its score matrix
-never has to fit whole. It computes in float32 on the CUDA cores, as the
-reference does; its times are in PERF.md.
+per (batch, head) walks the chunks in order with the float32 state on chip.
+The dtype of x, B and C picks the kernel (:data:`ROUTES`): bf16 runs on the
+tensor cores (``mma.sync``; the float32 factors, the decayed scores, the
+decayed x and the state, split into bf16 high and low parts against the
+exact bf16 operands); float32 runs on the CUDA cores in float32 throughout,
+since bf16 or TF32 tensor cores cannot meet the float32 check. The times
+are in PERF.md.
 
-A CUDA tensor launches the kernel (``ssd_scan.launches`` counts the
-launches); a CPU tensor takes :func:`repro_torch.kernels.ref.ssd_scan_ref`.
+A CUDA tensor launches the kernel of its route (``ssd_scan.launches`` counts
+every launch, ``ssd_scan.route_launches`` each route's); a CPU tensor takes
+:func:`repro_torch.kernels.ref.ssd_scan_ref`.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from .runtime import use_kernel
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype launches: ssd_scan_mma_kernel or ssd_scan_kernel
+ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 # ssd_scan_fwd(x, a, B, C, y, state, dtype, Bb, S, H, P, N, L, stream)
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
@@ -73,6 +79,7 @@ def _launch(fn, x, a, B, C, chunk: int, stream):
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.route_launches[ROUTES[x.dtype]] += 1
     return y, state
 
 
@@ -89,3 +96,4 @@ def ssd_scan(x, a, B, C, *, chunk: int = 128):
 
 
 ssd_scan.launches = 0
+ssd_scan.route_launches = dict.fromkeys(ROUTES.values(), 0)

@@ -1,6 +1,7 @@
 """The port's CUDA build module on the CPU: a missing nvcc raises (nothing
 falls back), and ``build.entry`` binds a C entry point once, with the
-wrapper's argument types and an int result."""
+wrapper's argument types and an int result; a library's name follows its source
+and the shared headers."""
 import ctypes
 import types
 
@@ -30,3 +31,16 @@ def test_entry_binds_once(monkeypatch):
     assert build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES) is fn
     assert loads == ["flash_attention"]
     assert fn.argtypes == FA.ARGTYPES and fn.restype is ctypes.c_int
+
+
+def test_library_path_follows_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a shared header (``csrc/*.cuh``, the inline PTX) gives
+    every source a new library name, so no stale build is loaded."""
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in ("flash_attention", "ssd_scan")}
+    assert before == {n: build.library_path(n) for n in before}
+    (tmp_path / "ptx.cuh").write_text((tmp_path / "ptx.cuh").read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)

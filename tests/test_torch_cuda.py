@@ -9,7 +9,9 @@ Without a card they skip. Tolerances: K1 float32 rtol = atol = 1e-6 (FMA
 contraction and summation order), stacked rows held bitwise; K2 and K3 at
 the JAX kernel tests' own tolerances (K2 2e-5 float32 and 2e-2 bf16, K3
 2e-4 float32 and 5e-2 bf16: other summation orders, a bf16 rounding of the
-output that a last-bit difference can flip)."""
+output that a last-bit difference can flip). bf16 operands run K2's and
+K3's tensor-core kernels, float32 operands their CUDA-core kernels; each
+case checks that its route's launch count, and only that, went up."""
 import sys
 from pathlib import Path
 
@@ -70,6 +72,14 @@ def _tol(dtype, f32, bf16):
     return dict(rtol=bf16, atol=bf16) if dtype == torch.bfloat16 else dict(rtol=f32, atol=f32)
 
 
+def _launched_once(fn, routes, dtype, before, before_routes):
+    """fn launched once since ``before``, on ``dtype``'s route."""
+    want = dict(before_routes)
+    want[routes[dtype]] += 1
+    assert fn.launches == before + 1
+    assert fn.route_launches == want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
     (2, 64, 64, 4, 4, 32, True, 0),
@@ -79,15 +89,16 @@ def _tol(dtype, f32, bf16):
     (1, 128, 128, 4, 2, 32, True, 32),     # sliding window
     (1, 5, 40, 2, 1, 32, True, 0),         # cross attention, Sq < Sk
     (2, 33, 47, 4, 2, 128, True, 7),       # ragged, window, D 128
+    (2, 200, 200, 8, 1, 256, True, 64),    # causal with a window at D 256
     (4, 256, 256, 8, 1, 256, False, 0),    # gemma-2b's full width
 ])
 def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
     g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
     n = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = n(b, sq, h, d), n(b, sk, kv, d), n(b, sk, kv, d)
-    before = FA.flash_attention.launches
+    before, routes = FA.flash_attention.launches, dict(FA.flash_attention.route_launches)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    assert FA.flash_attention.launches == before + 1
+    _launched_once(FA.flash_attention, FA.ROUTES, dtype, before, routes)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
@@ -101,18 +112,57 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, w
     (1, 50, 2, 16, 8, 16),      # seq not a chunk multiple
     (2, 32, 1, 32, 32, 32),
     (1, 300, 4, 64, 128, 256),  # mamba2's head and state at chunk 256, padded
+    (2, 100, 3, 64, 8, 64),     # N 8, below one 16-wide k-step, at P 64
+    (1, 77, 2, 12, 20, 32),     # widths that are no multiple of 8 (element loads)
 ])
 def test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     g = torch.Generator(device=cuda).manual_seed(s + h + p)
     r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
     x, B, C = r(b, s, h, p).to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(dtype)
     a = torch.rand((b, s, h), generator=g, device=cuda) * 0.299 + 0.7
-    before = SS.ssd_scan.launches
+    before, routes = SS.ssd_scan.launches, dict(SS.ssd_scan.route_launches)
     y, st = SS.ssd_scan(x, a, B, C, chunk=chunk)
-    assert SS.ssd_scan.launches == before + 1
+    _launched_once(SS.ssd_scan, SS.ROUTES, dtype, before, routes)
     y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
     torch.cuda.synchronize()
     tol = _tol(dtype, 2e-4, 5e-2)
+    torch.testing.assert_close(y.float(), y_w.float(), **tol)
+    torch.testing.assert_close(st, st_w, **tol)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 1000, 2, 64, 128, 256),  # four chunks at mamba2's widths, the last padded
+    (4, 256, 80, 64, 128, 256),  # mamba2-2.7b's full width, one chunk
+])
+def test_cuda_ssd_scan_bf16_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chunk):
+    """The tensor-core kernel's state carried over several chunks, and the
+    one-shot path's own shape, in bf16 at the JAX test's 5e-2."""
+    test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, torch.bfloat16)
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte line."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def test_cuda_tensor_core_kernels_take_unaligned_views(cuda):
+    """bf16 operands that cp.async cannot copy 16 bytes at a time (a view at
+    an odd offset) are loaded element by element, with the same results."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = n(2, 70, 4, 64), n(2, 70, 2, 64), n(2, 70, 2, 64)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=20)
+    got = FA.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=True, window=20)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(torch.bfloat16, 2e-5, 2e-2))
+    x, B, C = n(1, 90, 3, 32), n(1, 90, 16), n(1, 90, 16)
+    a = torch.rand((1, 90, 3), generator=g, device=cuda) * 0.299 + 0.7
+    y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=64)
+    y, st = SS.ssd_scan(_unaligned(x), a, _unaligned(B), _unaligned(C), chunk=64)
+    tol = _tol(torch.bfloat16, 2e-4, 5e-2)
     torch.testing.assert_close(y.float(), y_w.float(), **tol)
     torch.testing.assert_close(st, st_w, **tol)
 

@@ -35,7 +35,7 @@ def test_port_has_the_slice_modules():
                 "kernels/ref.py", "kernels/deis_step.py", "kernels/ops.py",
                 "kernels/build.py", "kernels/flash_attention.py",
                 "kernels/ssd_scan.py", "kernels/csrc/flash_attention.cu",
-                "kernels/csrc/ssd_scan.cu", "configs/mamba2_2p7b.py",
+                "kernels/csrc/ssd_scan.cu", "kernels/csrc/ptx.cuh", "configs/mamba2_2p7b.py",
                 "models/layers.py", "models/transformer.py", "models/convert.py",
                 "models/ssm.py", "diffusion/lm.py", "obs/metrics.py",
                 "obs/trace.py", "serving/engine.py"):
