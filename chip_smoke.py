@@ -59,9 +59,31 @@ Phases (any failure raises and the script exits non-zero):
    the same call at ``use_kernels=False`` (reported); eps-forward time per
    NFE on both routes, the kernel route's device time by kernel, peak
    memory.
-8. Card against CPU: the reduced float32 models on the card (kernel route,
+8. Launcher over HTTP (after phase 6, on its weights): ``ServeDriver``
+   with ``stream_decode`` and ``max_pending`` 9 behind ``make_http_server``
+   on 127.0.0.1, clients on threads with urllib: a lone request bitwise
+   equal to its solo solve through the sync engine; 8 concurrent requests
+   of 5 solvers (tab3, ddim, rho_heun, seeds2, dpm2m), half streamed (step
+   lines k = 1..n, then the result, ``nfe`` as asked); a burst over
+   ``max_pending`` answered 429; a long streamed request cancelled through
+   ``/v1/cancel`` (its stream ends in an error event); 400 and 404;
+   ``/metrics`` and ``/stats`` counts that add up; no driver crash; K1's
+   launches equal to the ``ab`` group steps served. Reports latency p50 and
+   max, tokens per second and the share of tokens equal to solo solves.
+9. AR decode (after each one-shot model, on its weights with the AR head):
+   ``ARServeEngine`` on gemma-2b and mamba2-2.7b, 4 prompts of 8-64
+   tokens, 16 new tokens each: prefill-then-decode logits against one full
+   forward within AR_TOL (asserted); prefill ms, ms per decoded token, the
+   device's idle share during decode, peak memory, and the share of greedy
+   tokens equal to a no-cache greedy loop.
+10. Card against CPU: the reduced float32 models on the card (kernel route,
    K2 and K3 on their CUDA-core kernels) against the same models on the
-   CPU (plain versions): finite x0 of the right shape that agree at 1e-3.
+   CPU (plain versions): finite x0 of the right shape that agree at 1e-3;
+   the reduced float32 AR decode of gemma-2b, mamba2-2.7b and
+   h2o-danube-3-4b (a 40-token prompt into the 16-slot ring) at 1e-3.
+   Meanwhile ``python -m repro_torch.launch.serve --arch gemma_2b
+   --transport driver --requests 6 --seq-len 128`` runs as a subprocess at
+   full width; it must exit 0 with its ``served 6 requests`` line.
 
 The kernel JSON has one row per hand-written kernel: K1, and both kernels
 of K2 and of K3, each with its launches on its path (K1 on the served
@@ -187,7 +209,9 @@ def phase_device(device):
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("tf32: off for float32 matmuls and cuDNN convolutions")
+    print("tf32: off for float32 matmuls and cuDNN convolutions; bf16 reduced-precision "
+          f"reductions allowed: "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     return name, count
 
 
@@ -633,6 +657,333 @@ def phase_serve(device, reduced):
     return cfg, params, sde, launches
 
 
+def _local_open(url, data=None):
+    """urlopen for the server on 127.0.0.1, never through a proxy."""
+    import urllib.request
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    return opener.open(urllib.request.Request(url, data=data), timeout=600)
+
+
+def _http_call(url, body=None, stream=False):
+    """(status, parsed body, client seconds) of one request to the port's
+    HTTP transport: JSON, or the list of NDJSON lines when ``stream``."""
+    import urllib.error
+    data = None if body is None else json.dumps(dict(body, stream=stream)).encode()
+    t0 = time.perf_counter()
+    try:
+        with _local_open(url, data) as r:
+            code, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, text = e.code, e.read().decode()
+    dt = time.perf_counter() - t0
+    if url.endswith("/metrics"):
+        return code, text, dt
+    parsed = [json.loads(ln) for ln in text.strip().split("\n")] if stream and code == 200 \
+        else json.loads(text)
+    return code, parsed, dt
+
+
+def _parallel(fn, args):
+    """fn(*a) for every a in args, each on its own client thread; results in order."""
+    import threading
+    out = [None] * len(args)
+
+    def run(i):
+        out[i] = fn(*args[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP client thread did not finish in 600 s")
+    return out
+
+
+def phase_http(device, cfg, params, sde, reduced):
+    """The launcher's HTTP transport in-process on 127.0.0.1 over the served
+    weights: ``ServeDriver(engine, stream_decode=True, max_pending=9)`` and
+    ``make_http_server``, clients on threads with urllib. A lone request
+    equal bitwise to its solo solve through the sync engine; 8 concurrent
+    requests of 5 solvers, streamed and not; a burst over
+    ``max_pending`` answered 429; a long streamed request cancelled through
+    ``/v1/cancel``; 400 and 404; ``/metrics`` and ``/stats`` that add up;
+    no driver crash; K1's launches equal to the ``ab`` group steps served.
+    Returns the numbers reported."""
+    import threading
+    from repro_torch.core import get_timesteps, make_plan, solver_stages
+    from repro_torch.kernels import deis_step as K
+    from repro_torch.launch.serve import make_http_server
+    from repro_torch.serving.driver import ServeDriver
+    from repro_torch.serving.engine import DiffusionServeEngine, Request
+
+    seq = 32 if reduced else 128
+    lone = dict(seq_len=seq, nfe=8, solver="tab3", seed=21)
+    mix = [dict(seq_len=seq, nfe=8, solver="tab3", seed=30),
+           dict(seq_len=seq, nfe=6, solver="ddim", seed=31),
+           dict(seq_len=seq, nfe=8, solver="rho_heun", seed=32),
+           dict(seq_len=seq, nfe=8, solver="seeds2", seed=33),
+           dict(seq_len=seq, nfe=10, solver="dpm2m", seed=34),
+           dict(seq_len=seq // 2, nfe=6, solver="tab3", seed=35),
+           dict(seq_len=seq, nfe=8, solver="ddim", seed=36),
+           dict(seq_len=seq, nfe=8, solver="rho_heun", seed=37)]
+    solvers = {q["solver"] for q in mix} | {"tab3"}
+    method = {s: make_plan(s, sde, get_timesteps(sde, max(1, 8 // solver_stages(s)))).method
+              for s in solvers}
+
+    def solo(q):
+        eng = DiffusionServeEngine(params, cfg, sde=sde, device=device)
+        return eng.serve([Request(uid=0, **q)])[0].tokens
+
+    want_lone, want_mix = solo(lone), [solo(q) for q in mix]
+    eng = DiffusionServeEngine(params, cfg, sde=sde, device=device)
+    drv = ServeDriver(eng, stream_decode=True, max_pending=9)
+    group_uids = []     # the uids of every group step the engine ran
+    fanout = drv._fanout
+    drv._fanout = lambda ev: (group_uids.append(ev.uids), fanout(ev))
+    server = make_http_server(drv, 0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    solver_of = {}      # uid -> solver, from the answers
+    posts = invalid = shed = 0
+    K.fused_ab_step.launches = 0
+    drv.start()
+    serve_thread.start()
+    try:
+        # 1. one request alone: bitwise its solo solve through the sync engine
+        code, res, lone_s = _http_call(f"{base}/v1/generate", lone)
+        posts += 1
+        if code != 200 or res["tokens"] != want_lone.tolist() or res["nfe"] != lone["nfe"]:
+            raise AssertionError(f"lone request: {code}, tokens equal "
+                                 f"{code == 200 and res['tokens'] == want_lone.tolist()}")
+        solver_of[res["uid"]] = lone["solver"]
+
+        # 2. a long streamed request, in flight from its first step line on
+        long_body = dict(seq_len=seq, nfe=1000, solver="ddim", seed=40, stream=True)
+        long_resp = _local_open(f"{base}/v1/generate", json.dumps(long_body).encode())
+        posts += 1
+        first = json.loads(long_resp.readline())
+        if first["event"] != "step" or first["k"] != 1:
+            raise AssertionError(f"long request's first line {first}")
+        solver_of[first["uid"]] = "ddim"
+
+        # 3. 8 concurrent requests, even ones streamed
+        t0 = time.perf_counter()
+        answers = _parallel(lambda i, q: _http_call(f"{base}/v1/generate", q, stream=i % 2 == 0),
+                            list(enumerate(mix)))
+        wall = time.perf_counter() - t0
+        posts += len(mix)
+        lat, toks = [], {}
+        for i, (q, (code, res, dt)) in enumerate(zip(mix, answers)):
+            if code != 200:
+                raise AssertionError(f"concurrent request {i} ({q['solver']}): {code} {res}")
+            if i % 2 == 0:
+                steps, last = res[:-1], res[-1]
+                n = steps[-1]["n_steps"] if steps else 0
+                if last["event"] != "result" or [ln["k"] for ln in steps] != list(range(1, n + 1)) \
+                        or any(ln["event"] != "step" or ln["n_steps"] != n for ln in steps) \
+                        or any(len(ln["tokens"]) != q["seq_len"] for ln in steps):
+                    raise AssertionError(f"stream {i} ({q['solver']}): "
+                                         f"{[(ln['event'], ln.get('k')) for ln in res]}")
+                res = last
+            if res["nfe"] != q["nfe"] or len(res["tokens"]) != q["seq_len"]:
+                raise AssertionError(f"request {i}: nfe {res['nfe']} of {q['nfe']}, "
+                                     f"{len(res['tokens'])} tokens of {q['seq_len']}")
+            solver_of[res["uid"]] = q["solver"]
+            lat.append(dt)
+            toks[i] = res["tokens"]
+        eq = [np.mean(np.asarray(toks[i]) == want_mix[i]) for i in range(len(mix))]
+
+        # 4. a burst over max_pending (the long request holds one slot)
+        burst = _parallel(lambda q: _http_call(f"{base}/v1/generate", q),
+                          [(dict(seq_len=seq // 2, nfe=6, solver="ddim", seed=50 + i),)
+                           for i in range(16)])
+        posts += len(burst)
+        codes = sorted(c for c, _, _ in burst)
+        shed = codes.count(429)
+        if shed < 1 or codes.count(200) + shed != len(burst):
+            raise AssertionError(f"burst answered {codes}")
+        for c, res, _ in burst:
+            if c == 200:
+                solver_of[res["uid"]] = "ddim"
+            elif "max_pending" not in res["error"]:
+                raise AssertionError(f"429 without the backpressure message: {res}")
+
+        # 5. cancel the long request: cancelled, and its stream ends in an error event
+        code, res, _ = _http_call(f"{base}/v1/cancel", {"uid": first["uid"]})
+        if code != 200 or res != {"uid": first["uid"], "cancelled": True}:
+            raise AssertionError(f"cancel answered {code} {res}")
+        rest = [json.loads(ln) for ln in long_resp.read().decode().strip().split("\n")]
+        long_resp.close()
+        if rest[-1]["event"] != "error" or "cancelled" not in rest[-1]["error"] \
+                or any(ln["event"] != "step" for ln in rest[:-1]):
+            raise AssertionError(f"cancelled stream ended with {rest[-1]}")
+        long_steps = len(rest)   # its first step line, then the rest's step lines
+
+        # 6. bad input
+        code, res, _ = _http_call(f"{base}/v1/generate", dict(lone, solver="nope"))
+        posts += 1
+        invalid += 1
+        if code != 400 or "unknown solver" not in res["error"]:
+            raise AssertionError(f"unknown solver answered {code} {res}")
+        if _http_call(f"{base}/v1/nope", lone)[0] != 404 or _http_call(f"{base}/nope")[0] != 404:
+            raise AssertionError("an unknown route did not answer 404")
+
+        # 7. /metrics and /stats
+        code, text, _ = _http_call(f"{base}/metrics")
+        metrics = {}
+        for ln in text.splitlines():
+            if ln and not ln.startswith("#") and "{" not in ln:
+                name, val = ln.split()
+                metrics[name] = float(val)
+        code_s, stats, _ = _http_call(f"{base}/stats")
+    finally:
+        server.shutdown()
+        server.server_close()
+        drv.stop(timeout=600)
+    launches = K.fused_ab_step.launches
+    m = metrics
+    completed = 1 + len(mix) + (len(burst) - shed)
+    want_counts = {"driver_submitted_total": posts - shed, "driver_shed_total": shed,
+                   "serve_completed_total": completed, "serve_cancelled_total": 1,
+                   "serve_submitted_total": posts - shed - invalid,
+                   "serve_deadline_evicted_total": 0, "driver_crash_total": 0}
+    got_counts = {k: int(m.get(k, -1)) for k in want_counts}
+    if got_counts != want_counts:
+        raise AssertionError(f"/metrics counts {got_counts} != {want_counts}")
+    if m["serve_submitted_total"] != m["serve_completed_total"] + m["serve_cancelled_total"] \
+            + m["serve_deadline_evicted_total"] or \
+            m["driver_submitted_total"] != m["serve_submitted_total"] + invalid:
+        raise AssertionError(f"/metrics do not add up: {got_counts}")
+    if code_s != 200 or (stats["submitted"], stats["shed"], stats["completed"],
+                         stats["cancelled"], stats["in_flight"]) != \
+            (posts - shed, shed, completed, 1, 0):
+        raise AssertionError(f"/stats {stats}")
+    if "driver_loop_seconds_count" not in m or "serve_step_seconds_count" not in m:
+        raise AssertionError("/metrics lacks the driver_* or serve_* histograms")
+    ab_steps = sum(method[solver_of[u[0]]] == "ab" for u in group_uids)
+    if device.type == "cuda" and launches != ab_steps:
+        raise AssertionError(f"HTTP path: K1 launches {launches} != ab group steps {ab_steps}")
+    lat = sorted(lat)
+    n_tok = sum(len(t) for t in toks.values())
+    loop = m["driver_loop_seconds_sum"] / max(1.0, m["driver_loop_seconds_count"])
+    print(f"http: lone request {lone_s:.3f} s, tokens bitwise its solo solve; 8 concurrent "
+          f"requests of {len({q['solver'] for q in mix})} solvers ({len(mix) // 2} streamed) in "
+          f"{wall:.3f} s: latency p50 {lat[len(lat) // 2]:.3f} s max {lat[-1]:.3f} s, "
+          f"{n_tok / wall:.1f} tokens/s; equal tokens against solo solves "
+          f"{float(np.mean(eq)):.4f} (per request {[round(float(e), 4) for e in eq]})")
+    print(f"http: burst of {len(burst)} over max_pending 9: {shed} answered 429; the long "
+          f"request cancelled after {long_steps} streamed steps; 400 and 404 as asked; "
+          f"/metrics {got_counts}; /stats agrees; driver loop mean {loop * 1e3:.3f} ms over "
+          f"{int(m['driver_loop_seconds_count'])} iterations; group steps {len(group_uids)}, "
+          f"ab {ab_steps}, K1 launches {launches}"
+          f"{'' if device.type == 'cuda' else ' (not counted on the cpu)'}")
+    return dict(p50=lat[len(lat) // 2], max=lat[-1], tok_s=n_tok / wall,
+                eq=float(np.mean(eq)), ab_steps=ab_steps, launches=launches)
+
+
+AR_TOL = 5e-2    # bf16 full width: |decode - full| <= AR_TOL * (|full| + max|full|)
+
+
+def _ar_decode_logits(cfg, params, seq, n_prompt):
+    """Prefill ``seq[:, :n_prompt]`` into a cache of ``seq``'s length
+    (``init_cache``, the prefilled layers copied in), then decode the rest
+    of ``seq`` one token at a time. Returns the logits of the last prompt
+    position and of each decoded position, (B, L - n_prompt + 1, vocab)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import make_decode_step, make_prefill_step
+    b, L = seq.shape
+    with torch.no_grad():
+        logits, pf = make_prefill_step(cfg)(params, {"tokens": seq[:, :n_prompt]})
+        cache = T.init_cache(cfg, b, L, device=seq.device)
+        for dst, src in zip(cache["blocks"], pf["blocks"]):
+            for name, t in src.items():
+                dst[name][:, :t.shape[1]].copy_(t)
+        out = [logits]
+        decode = make_decode_step(cfg)
+        for i in range(n_prompt, L):
+            logits, cache = decode(params, cache, seq[:, i:i + 1], i)
+            out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def phase_ar(device, cfg, params, reduced, n_new=16):
+    """``ARServeEngine`` greedy decode over the given weights (the AR head of
+    the same backbone): 4 requests with prompts of 8-64 tokens and 16 new
+    tokens each. For each request, the logits of prefill-then-decode,
+    teacher-forced on its greedy tokens, against one full forward over the
+    same sequence within AR_TOL (asserted), and both against a float32
+    forward of the same weights (reported). Reports prefill ms, ms per
+    decoded token, the device's idle share during decode, peak memory and
+    the share of greedy tokens equal to the no-cache greedy choice on the
+    same prefix (the argmax of the full forward at each position)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ARServeEngine, Request
+    cfg = cfg.with_(objective="ar")
+    lens = [8, 24, 40, 64]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    eng = ARServeEngine(params, cfg, max_len=max(lens) + n_new, device=device)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    eng.serve([dataclasses.replace(reqs[0], max_new_tokens=2)])     # warm-up
+    res = eng.serve(reqs)
+    _sync(device)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+    pre = eng.serve([dataclasses.replace(q, max_new_tokens=1) for q in reqs])
+    prefill_ms = [1e3 * r.latency_s for r in pre]
+    tok_ms = [1e3 * (r.latency_s - p.latency_s) / (n_new - 1) for r, p in zip(res, pre)]
+
+    p32 = _to(params, device, torch.float32)
+    cfg32 = cfg.with_(dtype="float32")
+    worst, vs32, eq = 0.0, {"decode": 0.0, "full": 0.0}, []
+    for q, r in zip(reqs, res):
+        if r.tokens.shape != (n_new,) or r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name} AR request {q.uid}: bad tokens {r.tokens}")
+        seq = torch.as_tensor(np.concatenate([q.prompt, r.tokens[:-1]]), device=device)[None]
+        n = len(q.prompt)
+        got = _ar_decode_logits(cfg, params, seq, n)[0]
+        with torch.no_grad():
+            full = T.forward(params, cfg, tokens=seq, mode="train")["logits"][0, n - 1:]
+            ref32 = T.forward(p32, cfg32, tokens=seq, mode="train")["logits"][0, n - 1:]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name}: decode logits not finite")
+        top = full.abs().max().item()
+        err = (got - full).abs()
+        worst = max(worst, (err.max() / top).item())
+        if not bool((err <= AR_TOL * (full.abs() + top)).all()):
+            raise AssertionError(f"{cfg.name} request {q.uid}: decode logits differ from the "
+                                 f"full forward by {err.max().item():.3e} (max |logit| {top:.3e})")
+        top32 = ref32.abs().max().item()
+        for name, lg in (("decode", got), ("full", full)):
+            vs32[name] = max(vs32[name], ((lg - ref32).abs().max() / top32).item())
+        eq.append(float((torch.argmax(full, -1).cpu().numpy() == r.tokens).mean()))
+    del p32
+
+    busy = ""
+    if device.type == "cuda":
+        one = [dataclasses.replace(reqs[-1], uid=9, max_new_tokens=4)]
+        dev4 = sum(_device_kernel_us(lambda: eng.serve(one), 1).values()) / 1e3
+        one[0] = dataclasses.replace(one[0], max_new_tokens=1)
+        dev1 = sum(_device_kernel_us(lambda: eng.serve(one), 1).values()) / 1e3
+        busy_tok = (dev4 - dev1) / 3
+        busy = (f"; device busy per decoded token {busy_tok:.3f} ms of {tok_ms[-1]:.3f} ms "
+                f"(64-token prompt; idle share {1 - busy_tok / tok_ms[-1]:.4f})")
+    print(f"ar {cfg.name}: 4 requests, prompts {lens}, {n_new} new tokens each: prefill "
+          f"{', '.join(f'{t:.3f}' for t in prefill_ms)} ms; per decoded token "
+          f"{', '.join(f'{t:.3f}' for t in tok_ms)} ms (mean {np.mean(tok_ms):.3f}){busy}; "
+          f"peak memory {peak:.2f} GiB")
+    print(f"ar {cfg.name}: prefill-then-decode logits vs one full forward: max abs err / max "
+          f"|logit| {worst:.3e} within {AR_TOL} (rtol and atol x max|logit|); against a "
+          f"float32 forward of the same weights: decode {vs32['decode']:.3e}, full forward "
+          f"{vs32['full']:.3e}; greedy tokens equal to the no-cache choice on the same prefix "
+          f"{float(np.mean(eq)):.4f} (per request {[round(e, 4) for e in eq]})")
+    return dict(prefill_ms=prefill_ms, tok_ms=float(np.mean(tok_ms)), worst=worst,
+                eq=float(np.mean(eq)), peak=peak, vs32=vs32)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -888,15 +1239,66 @@ def phase_card_vs_cpu(device):
               f"max abs x0 diff "
               f"{(x_dev - x_cpu).abs().max().item():.3e} within {CARD_VS_CPU_TOL}, "
               f"equal tokens {(t_dev.cpu() == t_cpu).float().mean().item():.4f}")
+    # autoregressive decode: prefill, then teacher-forced decode steps
+    from repro_torch.serving.engine import ARServeEngine, Request
+    for arch in ("gemma_2b", "mamba2_2p7b", "h2o_danube_3_4b"):
+        cfg = get_config(arch).reduced().with_(objective="ar")
+        p_cpu = init_params(cfg, 5, "cpu")
+        p_dev = _to(p_cpu, device)
+        seq = torch.from_numpy(np.random.RandomState(8).randint(0, cfg.vocab_size, (2, 48)))
+        lg_cpu = _ar_decode_logits(cfg, p_cpu, seq, 40)
+        lg_dev = _ar_decode_logits(cfg, p_dev, seq.to(device), 40).cpu()
+        if lg_dev.shape != (2, 9, cfg.vocab_size) or not torch.isfinite(lg_dev).all():
+            raise AssertionError(f"{arch}: card AR logits {tuple(lg_dev.shape)} not finite or "
+                                 "of the wrong shape")
+        torch.testing.assert_close(lg_dev, lg_cpu, rtol=CARD_VS_CPU_TOL, atol=CARD_VS_CPU_TOL)
+        reqs = [Request(uid=0, prompt=seq[0, :40].numpy(), max_new_tokens=8)]
+        t_dev = ARServeEngine(p_dev, cfg, max_len=48, device=device).serve(reqs)[0].tokens
+        t_cpu = ARServeEngine(p_cpu, cfg, max_len=48, device="cpu").serve(reqs)[0].tokens
+        ring = f", a ring of {cfg.sliding_window} slots" if cfg.sliding_window else ""
+        print(f"card vs cpu (reduced float32 {cfg.name}, AR: prefill 40 tokens{ring}, 8 "
+              f"decode steps): max abs logit diff {(lg_dev - lg_cpu).abs().max().item():.3e} "
+              f"within {CARD_VS_CPU_TOL}; ARServeEngine greedy tokens equal "
+              f"{float(np.mean(t_dev == t_cpu)):.4f}")
     return f32_launches
 
 
-def _to(tree, device):
+def _to(tree, device, dtype=None):
+    """The tree on ``device``; floating leaves cast to ``dtype`` when given."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+        return [_to(v, device, dtype) for v in tree]
+    return tree.to(device, dtype) if dtype is not None and tree.is_floating_point() \
+        else tree.to(device)
+
+
+def start_cli(device, reduced):
+    """``python -m repro_torch.launch.serve --arch gemma_2b --transport driver
+    --requests 6 --seq-len 128`` as a subprocess (full width on the card)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma_2b",
+           "--transport", "driver", "--requests", "6", "--seq-len", "128"]
+    if device.type != "cuda":
+        cmd += ["--device", "cpu"]
+    if reduced:
+        cmd += ["--reduced"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    print("cli: " + " ".join(cmd[1:]))
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env), time.perf_counter()
+
+
+def finish_cli(proc, t0):
+    """Wait for the launcher: exit 0 and its ``served 6 requests`` line."""
+    out, err = proc.communicate(timeout=600)
+    served = [ln for ln in out.splitlines() if ln.startswith("served ")]
+    if proc.returncode != 0 or not served or not served[-1].startswith("served 6 requests"):
+        raise AssertionError(f"the launcher exited {proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-2000:]}")
+    stats = served[-1].split("stats=")[-1]
+    print(f"cli: exit 0 after {time.perf_counter() - t0:.1f} s (process start, init and "
+          f"serve); {served[-1].split(';')[0]}; stats {stats}")
 
 
 def main(argv=None) -> int:
@@ -913,21 +1315,49 @@ def main(argv=None) -> int:
 
     device = torch.device(args.device)
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"[{name}: {now - t_phase[0]:.1f} s]")
+        t_phase[0] = now
     kind, count = phase_device(device)
     phase_build(device)
+    lap("device and build")
     k1 = phase_k1(device)
     k2 = phase_k2(device)
     k3 = phase_k3(device)
+    lap("kernels")
     # each path's launches: the counts are set to 0 just before it and read after
     cfg, params, sde, launches = phase_serve(device, args.reduced)
     phase_step_breakdown(device, cfg, params, sde, k1)
     phase_batch_invariance(device, cfg, params, sde)
+    lap("serve")
+    phase_http(device, cfg, params, sde, args.reduced)
+    lap("http")
     gemma = phase_one_shot(device, cfg, params, args.reduced)
+    lap("one-shot gemma")
+    phase_ar(device, cfg, params, args.reduced)
+    lap("ar gemma")
     del params
     cfg, params = _init_model("mamba2_2p7b", device, args.reduced)
     mamba = phase_one_shot(device, cfg, params, args.reduced)
+    lap("one-shot mamba2")
+    phase_ar(device, cfg, params, args.reduced)
+    lap("ar mamba2")
     del params
-    f32_path = phase_card_vs_cpu(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cli = start_cli(device, args.reduced)
+    try:
+        f32_path = phase_card_vs_cpu(device)
+        lap("card vs cpu")
+        finish_cli(*cli)
+        lap("cli (after card vs cpu)")
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].wait()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # launches: K1 on the served path; the tensor-core kernels on the bf16
     # one-shot path; the CUDA-core kernels on the float32 one-shot path (the

@@ -103,7 +103,7 @@ class ModelConfig:
 
 
 # the architectures ported so far (the JAX package has eleven)
-ARCH_IDS = ["gemma_2b", "mamba2_2p7b"]
+ARCH_IDS = ["gemma_2b", "h2o_danube_3_4b", "mamba2_2p7b"]
 
 
 def get_config(arch: str, **overrides) -> ModelConfig:

@@ -1,13 +1,14 @@
 """Backbone building blocks for the dense archs: norms, RoPE, attention
-(GQA/MQA, sliding window, per-row key masking, logit softcap; kernel K2 on
-request), GLU MLPs and the diffusion time embedding.
+(GQA/MQA, sliding window, per-row key masking, logit softcap, the KV cache
+and its sliding-window ring; kernel K2 on request), GLU MLPs and the
+diffusion time embedding.
 
-The counterpart of the dense half of ``repro.models.layers`` (no KV cache,
-no MoE yet). Plain functions over parameter dicts with the reference's
-layouts: weights ``(d_in, d_out)`` applied as ``x @ w``, q/k/v as
-``(B, S, H, D)``. Every matmul accumulates in float32 and rounds once to
-the input dtype (cuBLAS and the CPU kernels both do so for bfloat16); the
-attention logits and softmax stay in float32.
+The counterpart of the dense half of ``repro.models.layers`` (no
+cross-attention and no MoE yet). Plain functions over parameter dicts with
+the reference's layouts: weights ``(d_in, d_out)`` applied as ``x @ w``,
+q/k/v as ``(B, S, H, D)``. Every matmul accumulates in float32 and rounds
+once to the input dtype (cuBLAS and the CPU kernels both do so for
+bfloat16); the attention logits and softmax stay in float32.
 """
 from __future__ import annotations
 
@@ -114,20 +115,55 @@ def init_attention(gen, cfg: ModelConfig, dtype, device):
     }
 
 
-def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
-              valid_len=None, use_kernels=False):
-    """Full-sequence multi-head attention with GQA + RoPE + optional SWA.
+def _kv_cache_write(buf, new, index: int):
+    """Write ``new`` (B, s, KV, D) into ``buf`` (B, S_cache, KV, D) in place at
+    sequence position ``index``, clamped so the slice fits (the reference's
+    ``dynamic_update_slice``)."""
+    i = min(max(int(index), 0), buf.shape[1] - new.shape[1])
+    buf[:, i:i + new.shape[1]] = new.to(buf.dtype)
+    return buf
 
+
+def _decode_mask(cfg: ModelConfig, positions, s_cache: int, cache_index: int,
+                 device):
+    """Mask (B, 1, s, S_cache) of a decode step against the whole cache. A
+    sliding-window cache of exactly ``window`` slots is a ring: slot ``j``
+    holds position ``cache_index - (cache_index - j) % window`` (valid when
+    >= 0). Otherwise the cache is positional: causal, plus the window."""
+    slot = torch.arange(s_cache, device=device)
+    q = positions[..., :, None][:, None]                   # (B, 1, s, 1)
+    if cfg.sliding_window and s_cache == cfg.sliding_window:
+        kv_pos = cache_index - torch.remainder(cache_index - slot, s_cache)
+        return (kv_pos <= q) & (kv_pos >= 0)
+    mask = slot <= q
+    if cfg.sliding_window:
+        mask = mask & (slot > q - cfg.sliding_window)
+    return mask
+
+
+def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
+              cache=None, cache_index=None, return_kv: bool = False,
+              valid_len=None, use_kernels=False):
+    """Multi-head attention with GQA + RoPE + optional SWA and a KV cache.
+
+    cache: None (a full sequence) or ``{"k", "v"}`` of shape (B, S_cache,
+    KV, D): decode writes this step's post-RoPE k and v into it IN PLACE at
+    ``cache_index`` (an int; ``cache_index % window`` for a sliding-window
+    ring of ``window`` slots) and attends over the whole cache.
+    return_kv: prefill -- return the post-RoPE k and v as the cache, in
+    ring layout of ``window`` slots when ``sliding_window`` is set and the
+    sequence is longer than the window.
     valid_len: optional (B,) int -- per-row true sequence length when rows
     are right-padded to a bucketed S; key positions >= valid_len are masked
     out so a row's content does not depend on the bucket it landed in.
     use_kernels: the scores run through kernel K2
     (:func:`repro_torch.kernels.ops.flash_attention`), which reads the KV
-    heads in place. K2 has no padding operand and no softcap, so
-    ``valid_len`` or a config with ``logit_softcap`` raises rather than run
-    the plain route or drop the softcap (the reference's ``use_pallas``
-    takes K2 only with ``valid_len`` None).
-    Returns the attention block's output (B, S, d_model).
+    heads in place. K2 has no padding operand, no softcap and no cache, so
+    ``valid_len``, a ``cache`` or a config with ``logit_softcap`` raises
+    rather than run the plain route or drop the softcap (the reference's
+    ``use_pallas`` takes K2 only with ``valid_len`` and ``cache`` None).
+    Returns ``(out, new_cache)``: the block's output (B, S, d_model) and
+    the cache (None unless ``cache`` or ``return_kv``).
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -137,26 +173,51 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+
+    new_cache = None
+    if return_kv and cache is None:
+        w = cfg.sliding_window
+        if w and s > w:
+            slots = torch.arange(s - w, s, device=x.device) % w
+            ck = k.new_zeros((b, w) + k.shape[2:])
+            cv = v.new_zeros((b, w) + v.shape[2:])
+            ck[:, slots] = k[:, s - w:]
+            cv[:, slots] = v[:, s - w:]
+            new_cache = {"k": ck, "v": cv}
+        else:
+            new_cache = {"k": k, "v": v}
+    if cache is not None:
+        s_cache = cache["k"].shape[1]
+        ring = bool(cfg.sliding_window) and s_cache == cfg.sliding_window
+        write = cache_index % s_cache if ring else cache_index
+        k = _kv_cache_write(cache["k"], k, write)
+        v = _kv_cache_write(cache["v"], v, write)
+        new_cache = {"k": k, "v": v}
+
     if use_kernels:
-        if valid_len is not None:
-            raise ValueError("kernel K2 has no per-row key length; run "
-                             "valid_len with use_kernels=False")
+        if valid_len is not None or cache is not None:
+            raise ValueError("kernel K2 has no per-row key length and no KV "
+                             "cache; run valid_len or a cache with "
+                             "use_kernels=False")
         if cfg.logit_softcap:
             raise ValueError("kernel K2 has no logit softcap; run "
                              f"{cfg.name} with use_kernels=False")
         out = ops.flash_attention(q, k, v, causal=causal,
                                   window=cfg.sliding_window)
-        return matmul(out.reshape(b, s, cfg.q_dim), params["wo"])
+        return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), new_cache
     n_rep = cfg.n_heads // max(1, k.shape[2])
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
-    kv_valid = None
-    if valid_len is not None:
-        kv_valid = torch.arange(s, device=x.device)[None, :] < valid_len[:, None]
-    mask = make_attention_mask(positions, positions, causal,
-                               cfg.sliding_window, kv_valid=kv_valid)
+    if cache is not None:
+        mask = _decode_mask(cfg, positions, k.shape[1], cache_index, x.device)
+    else:
+        kv_valid = None
+        if valid_len is not None:
+            kv_valid = torch.arange(s, device=x.device)[None, :] < valid_len[:, None]
+        mask = make_attention_mask(positions, positions, causal,
+                                   cfg.sliding_window, kv_valid=kv_valid)
     out = attention_scores(q, k, v, mask, cfg.logit_softcap)
-    return matmul(out.reshape(b, s, cfg.q_dim), params["wo"])
+    return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), new_cache
 
 
 # --------------------------------------------------------------------- MLPs

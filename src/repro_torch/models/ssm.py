@@ -1,8 +1,7 @@
 """Mamba2 / SSD mixer (arXiv:2405.21060) for the ssm archs.
 
-The counterpart of ``repro.models.ssm`` for full sequences (training,
-prefill and the diffusion eps-net): the in-projection, the depthwise causal
-convolution, the SSD chunked scan and the gated RMS norm. State-space
+The counterpart of ``repro.models.ssm``: the in-projection, the depthwise
+causal convolution, the SSD chunked scan and the gated RMS norm. State-space
 duality with one scalar decay per head::
 
     h_t = a_t h_{t-1} + B_t x_t^T      (per head: h in R^{P x N})
@@ -11,8 +10,8 @@ duality with one scalar decay per head::
 :func:`ssd_chunked` is the reference's plain chunked form; with
 ``use_kernels=True`` :func:`ssm_forward` calls kernel K3
 (:func:`repro_torch.kernels.ops.ssd_scan`) instead, as the reference's
-``use_pallas`` does. The O(1) decode cache belongs to autoregressive
-serving and is not ported yet.
+``use_pallas`` does. Autoregressive decode carries a cache of the conv
+history and the state and takes the O(1) recurrent update per token.
 """
 from __future__ import annotations
 
@@ -59,17 +58,23 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * n, n_heads], dim=-1)
 
 
-def _causal_conv(xbc, w, b):
-    """Depthwise causal convolution of width K over a full sequence (zero
-    history). xbc: (B, S, C); w: (K, C). Returns silu(conv) in xbc's dtype."""
+def _causal_conv(xbc, w, b, state=None):
+    """Depthwise causal convolution of width K. xbc: (B, S, C); w: (K, C);
+    state: the K - 1 inputs before this sequence (B, K - 1, C), or None for
+    a zero history. Returns ``(silu(conv) in xbc's dtype, new_state)``,
+    where ``new_state`` holds the last K - 1 inputs (None when K is 1)."""
     k = w.shape[0]
-    xp = F.pad(xbc, (0, 0, k - 1, 0))                      # (B, S + K - 1, C)
+    if state is None:
+        xp = F.pad(xbc, (0, 0, k - 1, 0))                  # (B, S + K - 1, C)
+    else:
+        xp = torch.cat([state, xbc], dim=1)
     s = xbc.shape[1]
     out = xp[:, 0:s] * w[0]
     for i in range(1, k):
         out = out + xp[:, i:i + s] * w[i]
     out = out + b
-    return F.silu(out.to(torch.float32)).to(xbc.dtype)
+    new_state = xp[:, -(k - 1):] if k > 1 else None
+    return F.silu(out.to(torch.float32)).to(xbc.dtype), new_state
 
 
 def ssd_chunked(x, a, B, C, chunk: int):
@@ -125,15 +130,14 @@ def ssd_chunked(x, a, B, C, chunk: int):
 
 
 def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = False):
-    """The full Mamba2 mixer over a whole sequence. x: (B, S, D).
+    """The full Mamba2 mixer. x: (B, S, D).
 
-    ``use_kernels`` routes the scan through kernel K3 (the reference's
-    ``use_pallas``); otherwise :func:`ssd_chunked` runs it. Returns
-    ``(out, {"conv", "state"})`` like the reference; ``cache`` (the decode
-    path) is not ported yet and raises."""
-    if cache is not None:
-        raise NotImplementedError("the SSM decode cache belongs to autoregressive "
-                                  "serving, which is not ported yet")
+    cache: None (a full sequence: training, prefill, the eps-net) or
+    ``{"conv": (B, K-1, C), "state": (B, H, P, N)}`` for the O(1) decode
+    update (S must be 1): ``state = state * a + B x^T``, ``y = C state`` in
+    float32. ``use_kernels`` routes a full sequence's scan through kernel
+    K3 (the reference's ``use_pallas``); otherwise :func:`ssd_chunked` runs
+    it. Returns ``(out, {"conv", "state"})`` like the reference."""
     bsz, s, _ = x.shape
     scfg = cfg.ssm
     d_inner, n_heads = ssm_dims(cfg)
@@ -144,19 +148,24 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     dt = F.softplus(dt.to(f32) + params["dt_bias"])          # (B, S, H)
     a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
 
-    k = params["conv_w"].shape[0]
-    # the last K - 1 inputs of the zero-padded sequence (the reference's conv state)
-    conv_state = (F.pad(xbc[:, -(k - 1):], (0, 0, max(0, k - 1 - s), 0))
-                  if k > 1 else None)
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                   state=None if cache is None else cache["conv"])
     xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
     xh = xs.reshape(bsz, s, n_heads, p)
-    chunk = min(scfg.chunk_size, s)
-    if use_kernels:
-        y, state = ops.ssd_scan(xh.contiguous(), a.contiguous(), B.contiguous(),
-                                C.contiguous(), chunk=chunk)
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"the SSM decode cache takes one token at a time, got {s}")
+        st = cache["state"] * a[:, 0, :, None, None] + torch.einsum(
+            "bn,bhp->bhpn", B[:, 0].to(f32), xh[:, 0].to(f32))
+        y = torch.einsum("bn,bhpn->bhp", C[:, 0].to(f32), st)[:, None]
+        state = st
     else:
-        y, state = ssd_chunked(xh, a, B, C, chunk=chunk)
+        chunk = min(scfg.chunk_size, s)
+        if use_kernels:
+            y, state = ops.ssd_scan(xh.contiguous(), a.contiguous(), B.contiguous(),
+                                    C.contiguous(), chunk=chunk)
+        else:
+            y, state = ssd_chunked(xh, a, B, C, chunk=chunk)
 
     y = y + params["D"][None, None, :, None] * xh.to(f32)
     y = y.reshape(bsz, s, d_inner)

@@ -1,13 +1,18 @@
 """Backbone assembly for the dense and ssm archs: init + forward.
 
 The counterpart of ``repro.models.transformer`` for ``arch_type`` "dense"
-(attention + MLP layers) and "ssm" (Mamba2 mixer layers, no MLP) in
-``mode="train"`` (full sequence, no KV cache). The reference stacks the
-layers' parameters on a leading ``n_blocks`` axis and scans over them; here
-``params["blocks"]`` is a list of per-layer dicts (the reference's ``slot0``
-subtree of each block) and a Python loop walks it. ``use_kernels`` sends
+(attention + MLP layers) and "ssm" (Mamba2 mixer layers, no MLP). The
+reference stacks the layers' parameters on a leading ``n_blocks`` axis and
+scans over them; here ``params["blocks"]`` is a list of per-layer dicts
+(the reference's ``slot0`` subtree of each block) and a Python loop walks
+it. ``use_kernels`` sends
 attention to kernel K2 and the Mamba2 scan to kernel K3 (the reference's
 ``use_pallas``).
+
+Modes: "train" (full sequence), "prefill" (full sequence, returns the
+cache) and "decode" (one token against the cache at ``cache_index``);
+:func:`init_cache` allocates an empty cache. Caches mirror the params: a
+list of per-layer dicts under ``"blocks"``.
 
 Objectives: ``diffusion`` (bidirectional, time-conditioned denoiser -- the
 paper's eps_theta; see :mod:`repro_torch.diffusion.lm`) and ``ar``.
@@ -98,43 +103,96 @@ def _time_mlp(tm, te):
     return (te @ tm["w2"] + tm["b2"])[:n]
 
 
-def forward(params, cfg: ModelConfig, *, embeds, t_cond=None,
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
+               device=None) -> dict:
+    """A zeroed decode cache ``{"blocks": [per-layer dict]}`` on ``device``
+    (None means CUDA). Attention layers hold ``k`` and ``v`` of shape
+    (batch, L, n_kv_heads, head_dim): L is ``cache_len``, or at most the
+    window for a sliding-window arch (a ring); ssm layers hold ``conv``
+    (batch, conv_width - 1, d_inner + 2 N) and a float32 ``state`` (batch,
+    H, P, N). ``dtype`` (a torch dtype) defaults to the config's."""
+    _check_arch(cfg)
+    device = resolve_device(device)
+    dtype = dtype or _dtype(cfg)
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    blocks = []
+    for _ in range(cfg.n_layers):
+        if cfg.arch_type == "ssm":
+            d_inner, n_heads = S.ssm_dims(cfg)
+            n = cfg.ssm.state_dim
+            blocks.append({"conv": zeros(batch, cfg.ssm.conv_width - 1, d_inner + 2 * n),
+                           "state": zeros(batch, n_heads, cfg.ssm.head_dim, n,
+                                          dt=torch.float32)})
+        else:
+            n_slots = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+            hd = cfg.resolved_head_dim
+            blocks.append({"k": zeros(batch, n_slots, cfg.n_kv_heads, hd),
+                           "v": zeros(batch, n_slots, cfg.n_kv_heads, hd)})
+    return {"blocks": blocks}
+
+
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            mode: str = "train", cache=None, cache_index=None, t_cond=None,
             causal: Optional[bool] = None, valid_len=None,
             logits: bool = True, use_kernels: bool = False) -> dict:
-    """Full-sequence forward over continuous inputs. Returns a dict with
-    ``hidden``, ``eps`` (diffusion objective) and ``logits`` (float32, only
-    when ``logits=True``).
+    """Forward over tokens (an embedding lookup) or continuous inputs.
+    Returns a dict with ``hidden``, ``cache``, ``eps`` (diffusion objective
+    with ``embeds``) and ``logits`` (float32, only when ``logits=True``).
 
-    embeds: (B, S, d_model); t_cond: scalar or (B,) diffusion time;
-    valid_len: optional (B,) per-row true length for bucket-padded batches
-    (padded tail keys are masked out); use_kernels: attention through K2
-    (which refuses ``valid_len``) and the Mamba2 scan through K3."""
+    tokens: (B, S) int; embeds: (B, S, d_model); t_cond: scalar or (B,)
+    diffusion time. mode: "train" (full sequence, cache None), "prefill"
+    (full sequence; the cache of every layer comes back: post-RoPE k and v,
+    a ring of ``window`` slots for a sliding-window arch longer than its
+    window, or the ssm conv history and state) or "decode" (one token at
+    position ``cache_index``, an int, against ``cache``; attention caches
+    are written in place). valid_len: optional (B,) per-row true length for
+    bucket-padded batches (padded tail keys are masked out); use_kernels:
+    attention through K2 (which refuses ``valid_len`` and a cache) and the
+    Mamba2 scan through K3."""
     _check_arch(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     dtype = _dtype(cfg)
     if causal is None:
         causal = cfg.objective != "diffusion"
-    h = embeds.to(dtype)
+    h = embeds.to(dtype) if embeds is not None else params["embed"][tokens].to(dtype)
     b, s, _ = h.shape
-    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError("decode takes one token per row against a cache")
+        positions = torch.full((b, 1), int(cache_index), device=h.device)
+    else:
+        positions = torch.arange(s, device=h.device)[None].expand(b, s)
 
     if t_cond is not None:
         te = _time_mlp(params["time_mlp"], L.sinusoidal_embedding(
             t_cond, cfg.time_emb_dim).to(dtype))
         h = h + te[:, None, :]     # (B or 1, 1, d_model) broadcasts over rows
 
-    for bp in params["blocks"]:
+    collect_kv = mode == "prefill"
+    new_blocks = [] if (cache is not None or collect_kv) else None
+    for i, bp in enumerate(params["blocks"]):
+        c = cache["blocks"][i] if cache is not None else None
         hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
         if "ssm" in bp:
-            h = h + S.ssm_forward(bp["ssm"], cfg, hn, use_kernels=use_kernels)[0]
-            continue
-        h = h + L.attention(bp["attn"], cfg, hn, positions, causal=causal,
-                            valid_len=valid_len, use_kernels=use_kernels)
-        hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
-        h = h + L.mlp(bp["mlp"], cfg, hn)
+            out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=c,
+                                    use_kernels=use_kernels)
+            h = h + out
+        else:
+            out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
+                                  cache=c, cache_index=cache_index,
+                                  return_kv=collect_kv, valid_len=valid_len,
+                                  use_kernels=use_kernels)
+            h = h + out
+            hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
+            h = h + L.mlp(bp["mlp"], cfg, hn)
+        if new_blocks is not None:
+            new_blocks.append(nc if nc is not None else c)
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    out = {"hidden": h}
-    if cfg.objective == "diffusion":
+    out = {"hidden": h,
+           "cache": None if new_blocks is None else dict(cache or {}, blocks=new_blocks)}
+    if cfg.objective == "diffusion" and embeds is not None:
         out["eps"] = L.matmul(h, params["eps_head"])
     if logits:
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]

@@ -1,7 +1,9 @@
-"""Streaming continuous-batching DEIS sampling service on PyTorch.
+"""Serving engines on PyTorch: the streaming continuous-batching DEIS
+sampling service and the autoregressive greedy decoder.
 
-The counterpart of ``repro.serving.engine.DiffusionServeEngine`` (without
-the request-axis mesh and without the autoregressive engine). The
+The counterpart of ``repro.serving.engine``: ``DiffusionServeEngine``
+(without the request-axis mesh) and ``ARServeEngine`` (prefill, then one
+token at a time against the KV / SSM cache). The diffusion engine's
 semantics are the reference's:
 
 Admission.  ``submit()`` enqueues; at every ``tick()`` pending requests are
@@ -55,6 +57,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core import cached_make_plan, get_timesteps
@@ -67,15 +70,33 @@ from ..device import resolve_device
 from ..diffusion import lm as DLM
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer
+from ..training.steps import make_decode_step, make_prefill_step
+
+
+class DeadlineExceeded(RuntimeError):
+    """A request's absolute deadline passed before its solve finished.
+
+    With ``enforce_deadlines=True`` the engine evicts the row and emits a
+    :class:`Result` flagged ``deadline_exceeded=True``; the driver turns
+    that flag into THIS exception on the request's own stream -- the
+    scheduler thread never raises it."""
+
+
+class Cancelled(RuntimeError):
+    """A request was cancelled (``engine.cancel`` / ``driver.cancel``): the
+    engine emits a :class:`Result` flagged ``cancelled=True`` and the driver
+    turns it into THIS exception on the request's own stream."""
 
 
 @dataclasses.dataclass
 class Request:
-    """One diffusion serving request. ``priority`` (higher first) and
-    ``deadline_s`` (latency budget from submit time) change WHEN a request
-    is stepped, never WHAT it computes: samples depend only on
-    ``(solver, nfe, eta, seed, seq_len)``."""
+    """One serving request (AR or diffusion; diffusion fields listed last).
+    ``priority`` (higher first) and ``deadline_s`` (latency budget from
+    submit time) change WHEN a request is stepped, never WHAT it computes:
+    samples depend only on ``(solver, nfe, eta, seed, seq_len)``."""
     uid: int
+    prompt: np.ndarray | None = None       # AR: token prompt
+    max_new_tokens: int = 32               # AR: tokens to generate
     seq_len: int = 64
     nfe: int = 10
     solver: str = "tab3"
@@ -114,6 +135,62 @@ class StepEvent:
     row_k: Optional[tuple] = None
     row_seq_lens: Optional[tuple] = None
     row_err: Optional[tuple] = None
+
+
+class ARServeEngine:
+    """Greedy autoregressive decoding, one request after another: prefill
+    the prompt, then one token per decode step against the cache (the
+    reference's deliberately simple loop, without its unused ``max_batch``).
+    ``max_len`` is the cache length of a positional (non-ring) attention
+    layer. ``Result.latency_s`` is the request's ``perf_counter`` wall time,
+    prefill included. Runs under ``torch.no_grad()``."""
+
+    def __init__(self, params, cfg: ModelConfig, *, max_len: int = 512,
+                 device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params lie on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.params, self.cfg = params, cfg
+        self.max_len = max_len
+        self._prefill = make_prefill_step(cfg)
+        self._decode = make_decode_step(cfg)
+
+    def _grow(self, layer: dict, prompt_len: int) -> dict:
+        """Pad a prefilled attention layer's k and v along the sequence to
+        ``max_len`` slots, unless they are a sliding-window ring (the
+        reference pads axis 2 of its stacked leaves; a layer here has no
+        stacked axis). SSM layers keep their fixed-size conv and state."""
+        w = self.cfg.sliding_window
+        out = dict(layer)
+        for name in ("k", "v"):
+            t = layer.get(name)
+            if t is not None and t.shape[1] == prompt_len and not (w and t.shape[1] == w):
+                out[name] = F.pad(t, (0, 0, 0, 0, 0, self.max_len - prompt_len))
+        return out
+
+    def serve(self, requests: list[Request]) -> list[Result]:
+        """Run all requests to completion; returns Results (greedy decode)."""
+        results: list[Result] = []
+        with torch.no_grad():
+            for req in requests:
+                t0 = time.perf_counter()
+                prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.long,
+                                         device=self.device)[None]
+                n = prompt.shape[1]
+                logits, cache = self._prefill(self.params, {"tokens": prompt})
+                cache = dict(cache, blocks=[self._grow(c, n) for c in cache["blocks"]])
+                tok = torch.argmax(logits, -1)[:, None]
+                out_tokens = [int(tok[0, 0])]   # each token is read as it is made
+                pos = n
+                for _ in range(req.max_new_tokens - 1):
+                    logits, cache = self._decode(self.params, cache, tok, pos)
+                    tok = torch.argmax(logits, -1)[:, None]
+                    out_tokens.append(int(tok[0, 0]))
+                    pos += 1
+                results.append(Result(req.uid, np.asarray(out_tokens),
+                                      time.perf_counter() - t0))
+        return results
 
 
 # err histogram edges: local-error estimates are small dimensionless
@@ -300,6 +377,11 @@ class DiffusionServeEngine:
             "serve_tick_seconds", "one full scheduler tick")
 
     # ---- int views over the registry
+    @property
+    def ticks(self) -> int:
+        """Scheduler ticks executed (metric)."""
+        return int(self._m_ticks.value)
+
     @property
     def wasted_row_steps(self) -> int:
         """Steps burned on already-finished rows (metric)."""
@@ -644,6 +726,18 @@ class DiffusionServeEngine:
         """True while any request is pending admission or mid-solve, or a
         boundary Result awaits drain."""
         return bool(self._pending or self._active or self._boundary_results)
+
+    def reset(self) -> None:
+        """Abort all pending and in-flight work (queues cleared; the plan and
+        executor caches survive -- they are pure and reusable). This is the
+        recovery point after a failed tick leaves group state unreliable:
+        the driver calls it before failing the affected requests' futures."""
+        self._pending.clear()
+        self._active.clear()
+        self._boundary_results.clear()
+        self._g_queue.set(0)
+        self._g_groups.set(0)
+        self._g_occupancy.set(0.0)
 
     @property
     def num_executors(self) -> int:

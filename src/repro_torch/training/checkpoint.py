@@ -1,0 +1,123 @@
+"""Checkpoints in the JAX package's on-disk format (a counterpart of
+``repro.training.checkpoint``): a step directory ``step_<8 digits>``
+holding ``arrays.npz`` (``a0``, ``a1``, ...) and ``manifest.json``
+(``paths``, ``dtypes``, ``shapes``, ``step``, ``metadata``), written
+atomically. Leaves are keyed by the reference's path strings, e.g.
+``['blocks']/['slot0']/['attn']/['wq']``, with the layers stacked on a
+leading axis, so either package reads a checkpoint the other wrote.
+
+bfloat16 leaves are stored as numpy stores ``ml_dtypes.bfloat16`` arrays:
+their raw 2-byte words (``'V2'``), with ``"bfloat16"`` in the manifest's
+``dtypes``; :func:`restore` views them as int16 and then as
+``torch.bfloat16``. (The JAX package's own ``restore`` cannot cast such a
+leaf back and raises, whichever package wrote it.)
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+
+import numpy as np
+import torch
+
+from ..models.convert import params_to_numpy
+
+
+def _flatten(tree, prefix=()):
+    """(path, leaf) pairs of nested dicts, lists and tuples in the
+    reference's order: dict keys sorted, sequences by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten(tree[k], prefix + (f"[{k!r}]",))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (f"[{i}]",))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
+def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None) -> str:
+    """Atomically write ``tree`` (the port's params, or any nesting of
+    dicts, lists and tuples of tensors or arrays) as step ``step``; returns
+    the step directory."""
+    pairs = list(_flatten(params_to_numpy(tree)))
+    paths = [p for p, _ in pairs]
+    arrs = [a for _, a in pairs]
+    step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = tempfile.mkdtemp(dir=ckpt_dir if os.path.isdir(ckpt_dir) else None)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    np.savez(os.path.join(tmp, "arrays.npz"),
+             **{f"a{i}": a for i, a in enumerate(arrs)})
+    manifest = {
+        "paths": paths,
+        "dtypes": ["bfloat16" if a.dtype == np.dtype("V2") else str(a.dtype)
+                   for a in arrs],
+        "shapes": [list(a.shape) for a in arrs],
+        "step": step,
+        "metadata": metadata or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.isdir(step_dir):
+        shutil.rmtree(step_dir)
+    os.replace(tmp, step_dir)
+    return step_dir
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The highest step under ``ckpt_dir``, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_")]
+    return max(steps) if steps else None
+
+
+def _rebuild(node, prefix, load, layer=None):
+    """``node``'s structure with each leaf replaced by ``load(path, leaf,
+    layer)``; the leaves of a per-layer list under ``"blocks"`` read slice
+    ``layer`` of the stacked ``['blocks']/['slot0']/...`` entries."""
+    if isinstance(node, dict):
+        return {k: [_rebuild(lay, prefix + ("['blocks']", "['slot0']"), load, i)
+                    for i, lay in enumerate(v)]
+                if k == "blocks" and isinstance(v, list) and layer is None
+                else _rebuild(v, prefix + (f"[{k!r}]",), load, layer)
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_rebuild(v, prefix + (f"[{i}]",), load, layer)
+                          for i, v in enumerate(node))
+    return None if node is None else load("/".join(prefix), node, layer)
+
+
+def restore(ckpt_dir: str, like, step: int | None = None):
+    """Restore into the structure of ``like`` (the port's params, tensors):
+    each leaf takes ``like``'s dtype and device. Returns ``(tree,
+    metadata)``; raises ``KeyError`` for a path the checkpoint lacks (as
+    the reference does, e.g. for the ``(params, opt_state)`` tuple the
+    reference's train launcher saves)."""
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    data = np.load(os.path.join(step_dir, "arrays.npz"))
+    entries = {p: (i, d) for i, (p, d) in
+               enumerate(zip(manifest["paths"], manifest["dtypes"]))}
+
+    def load(path, leaf, layer):
+        if path not in entries:
+            raise KeyError(f"checkpoint missing {path}")
+        i, dtype = entries[path]
+        arr = data[f"a{i}"]
+        if layer is not None:
+            arr = arr[layer]
+        if dtype == "bfloat16":
+            t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        return t.to(device=leaf.device, dtype=leaf.dtype)
+
+    return _rebuild(like, (), load), manifest["metadata"]

@@ -38,7 +38,9 @@ def test_port_has_the_slice_modules():
                 "kernels/csrc/ssd_scan.cu", "kernels/csrc/ptx.cuh", "configs/mamba2_2p7b.py",
                 "models/layers.py", "models/transformer.py", "models/convert.py",
                 "models/ssm.py", "diffusion/lm.py", "obs/metrics.py",
-                "obs/trace.py", "serving/engine.py"):
+                "obs/trace.py", "obs/export.py", "serving/engine.py",
+                "serving/driver.py", "configs/h2o_danube_3_4b.py",
+                "training/steps.py", "training/checkpoint.py", "launch/serve.py"):
         assert (pkg / rel).is_file(), rel
 
 

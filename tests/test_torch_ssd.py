@@ -101,8 +101,14 @@ def test_ssm_forward_matches_reference(use_kernels):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
     np.testing.assert_allclose(cache["state"].numpy(), np.asarray(want_cache["state"]), **F32)
     np.testing.assert_allclose(cache["conv"].numpy(), np.asarray(want_cache["conv"]), **F32)
-    with pytest.raises(NotImplementedError):
-        PS.ssm_forward(pp, pcfg, torch.from_numpy(x), cache=cache)
+    # one O(1) decode step from that cache, against the reference's
+    x1 = np.random.RandomState(3).randn(2, 1, pcfg.d_model).astype(np.float32)
+    want1, want_c1 = RS.ssm_forward(jax.tree.map(jnp.asarray, layer), rcfg,
+                                    jnp.asarray(x1), cache=want_cache)
+    got1, c1 = PS.ssm_forward(pp, pcfg, torch.from_numpy(x1), cache=cache)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), **F32)
+    for name in ("conv", "state"):
+        np.testing.assert_allclose(c1[name].numpy(), np.asarray(want_c1[name]), **F32)
 
 
 def test_ssm_dims_and_init_match_reference():
