@@ -1,9 +1,11 @@
 """Model configuration: one frozen dataclass per backbone.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package). Only the fields and helpers the ported slice reads are kept:
-``ModelConfig`` with its derived dimensions, ``with_``/``reduced`` and
-``get_config``, which loads ``repro_torch.configs.<arch>``.
+package). Only the fields and helpers the ported slices read are kept:
+``ModelConfig`` with its derived dimensions, the hybrid pattern
+(``is_attn_layer``/``is_moe_layer``), the MoE dispatch mode,
+``with_``/``reduced`` and ``get_config``, which loads
+``repro_torch.configs.<arch>``.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     objective: str = "diffusion"  # diffusion (paper-native) | ar
     time_emb_dim: int = 256
+    moe_dispatch: str = "einsum"  # einsum (GShard one-hot) | gather (slot table)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -72,6 +75,21 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
+
+    def is_attn_layer(self, i: int) -> bool:
+        if self.arch_type == "ssm":
+            return False
+        if self.arch_type == "hybrid":
+            # jamba: 1 attention layer per attn_every (index 4 of each 8-block)
+            return (i % self.attn_every) == (self.attn_every // 2)
+        return True
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        if self.moe_every and self.moe_every > 1:
+            return (i % self.moe_every) == 1
+        return True
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -103,7 +121,8 @@ class ModelConfig:
 
 
 # the architectures ported so far (the JAX package has eleven)
-ARCH_IDS = ["gemma_2b", "h2o_danube_3_4b", "mamba2_2p7b"]
+ARCH_IDS = ["gemma_2b", "h2o_danube_3_4b", "mamba2_2p7b", "mixtral_8x7b",
+            "grok_1_314b", "jamba_1p5_large"]
 
 
 def get_config(arch: str, **overrides) -> ModelConfig:

@@ -2,9 +2,12 @@
 
 The reference's parameters are a pytree of arrays; handed over as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) they convert
-here without the port importing JAX. Stacked blocks (leading ``n_blocks``
-axis) are split into the port's per-layer list; :func:`params_to_numpy`
-restacks them (checkpoints are written in the reference's layout).
+here without the port importing JAX. The reference's ``blocks`` hold one
+subtree per slot (``slot0`` .. ``slot{bs-1}``, ``bs`` layers a block: 1,
+or ``attn_every`` for hybrid), each stacked on a leading ``n_blocks``
+axis; they are split into the port's per-layer list, layer ``i`` being
+slot ``i % bs`` of block ``i // bs``. :func:`params_to_numpy` restacks
+them (checkpoints are written in the reference's layout).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from .transformer import block_size
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -36,22 +40,42 @@ def _map(fn, tree, *rest):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
-    """The reference's parameter tree of a dense or ssm arch (numpy leaves)
-    as the port's params on ``device`` (``None`` means CUDA). Each layer is
-    the block's ``slot0`` subtree as it stands: ``attn``/``norm2``/``mlp``
-    for dense layers, ``ssm`` (float32 ``A_log``, ``dt_bias``, ``D``; conv
-    weights ``(K, C)``) for ssm layers."""
+    """The reference's parameter tree (numpy leaves) as the port's params on
+    ``device`` (``None`` means CUDA). Layer ``i`` is slice ``i // bs`` of
+    the block's ``slot{i % bs}`` subtree as it stands: ``attn`` or ``ssm``
+    (float32 ``A_log``, ``dt_bias``, ``D``; conv weights ``(K, C)``), then
+    ``norm2`` with ``mlp`` or ``moe`` (float32 ``router``; experts (E, d,
+    f) and (E, f, d)) unless the layer is a pure ssm one."""
     device = resolve_device(device)
+    bs = block_size(cfg)
     out = {}
     for name, sub in tree.items():
         if name == "blocks":
-            layer = sub["slot0"]   # dense and ssm: one layer per block
+            if set(sub) != {f"slot{j}" for j in range(bs)}:
+                raise ValueError(f"blocks hold {sorted(sub)}, {cfg.name} has "
+                                 f"{bs} slots a block")
             out["blocks"] = [
-                _map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device), layer)
+                _map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i // bs], device),
+                     sub[f"slot{i % bs}"])
                 for i in range(cfg.n_layers)]
         else:
             out[name] = _map(lambda a: tensor_from_numpy(a, device), sub)
     return out
+
+
+def layers_per_block(layers: list) -> int:
+    """The block size of a per-layer list (params or a cache): the shortest
+    period of its layers' structure (leaf names and shapes). A block of the
+    reference's holds one period of the layer pattern (dense, moe, ssm: 1;
+    hybrid: ``attn_every``, one attention layer a block), so this is the
+    reference's :func:`~repro_torch.models.transformer.block_size`."""
+    def shape(node):
+        if isinstance(node, dict):
+            return tuple((k, shape(v)) for k, v in sorted(node.items()))
+        return tuple(node.shape)
+    sig = [shape(layer) for layer in layers]
+    n = len(sig)
+    return next(p for p in range(1, n + 1) if n % p == 0 and sig[p:] == sig[:n - p])
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -64,15 +88,22 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _restack(layers: list) -> dict:
+    """A per-layer list as the reference's ``{"slot<j>": stacked subtree}``
+    (:func:`layers_per_block` slots, each leaf stacked over the blocks)."""
+    bs = layers_per_block(layers)
+    return {f"slot{j}": _map(lambda *ls: np.stack([tensor_to_numpy(t) for t in ls]),
+                             *layers[j::bs])
+            for j in range(bs)}
+
+
 def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`: the port's params (or a
     cache, or a tuple holding them) as the reference's tree of numpy arrays,
-    each per-layer list under ``"blocks"`` restacked on a leading axis under
-    ``"slot0"``."""
+    each per-layer list under ``"blocks"`` restacked into its slots."""
     if isinstance(tree, dict):
-        return {k: {"slot0": _map(lambda *ls: np.stack([tensor_to_numpy(t) for t in ls]), *v)}
-                if k == "blocks" and isinstance(v, list) else params_to_numpy(v)
-                for k, v in tree.items()}
+        return {k: _restack(v) if k == "blocks" and isinstance(v, list)
+                else params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):

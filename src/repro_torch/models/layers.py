@@ -1,14 +1,15 @@
-"""Backbone building blocks for the dense archs: norms, RoPE, attention
-(GQA/MQA, sliding window, per-row key masking, logit softcap, the KV cache
-and its sliding-window ring; kernel K2 on request), GLU MLPs and the
+"""Backbone building blocks: norms, RoPE, attention (GQA/MQA, sliding
+window, per-row key masking, logit softcap, the KV cache and its
+sliding-window ring; kernel K2 on request), GLU MLPs, the top-k capacity
+MoE (GShard one-hot or slot-table dispatch, with its aux losses) and the
 diffusion time embedding.
 
-The counterpart of the dense half of ``repro.models.layers`` (no
-cross-attention and no MoE yet). Plain functions over parameter dicts with
-the reference's layouts: weights ``(d_in, d_out)`` applied as ``x @ w``,
-q/k/v as ``(B, S, H, D)``. Every matmul accumulates in float32 and rounds
-once to the input dtype (cuBLAS and the CPU kernels both do so for
-bfloat16); the attention logits and softmax stay in float32.
+The counterpart of ``repro.models.layers`` (no cross-attention yet).
+Plain functions over parameter dicts with the reference's layouts: weights
+``(d_in, d_out)`` applied as ``x @ w``, q/k/v as ``(B, S, H, D)``, experts
+``(E, d_in, d_out)``. Every matmul accumulates in float32 and rounds once
+to the input dtype (cuBLAS and the CPU kernels both do so for bfloat16);
+the attention logits and softmax stay in float32.
 """
 from __future__ import annotations
 
@@ -246,3 +247,136 @@ def mlp(params, cfg: ModelConfig, x):
     else:
         up = _act(cfg.act)(up)
     return matmul(up, params["w_down"])
+
+
+# ---------------------------------------------------------------------- MoE
+def init_moe(gen, cfg: ModelConfig, dtype, device):
+    """Router (d, E) in float32; ``w_gate``/``w_up`` (E, d, f) and
+    ``w_down`` (E, f, d) in ``dtype``, with the reference's scales."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    s = 1.0 / math.sqrt(d)
+    n = lambda shape: torch.randn(shape, generator=gen, device=device)
+    return {
+        "router": (n((d, e)) * s).to(torch.float32),
+        "w_gate": (n((e, d, f)) * s).to(dtype),
+        "w_up": (n((e, d, f)) * s).to(dtype),
+        "w_down": (n((e, f, d)) * s / math.sqrt(2 * cfg.n_layers)).to(dtype),
+    }
+
+
+def moe_route(params, cfg: ModelConfig, x) -> dict:
+    """Top-k routing with per-row expert capacity (the first half of the
+    reference's ``moe``). x: (B, S, d). The float32 router logits and
+    their softmax pick each token's top-k experts; :func:`moe_queue` places
+    them in the experts' queues."""
+    logits = x.to(torch.float32) @ params["router"]
+    gates = torch.softmax(logits, dim=-1)
+    _, gate_idx = torch.topk(gates, cfg.moe.top_k, dim=-1)
+    return moe_queue(cfg, logits, gates, gate_idx)
+
+
+def moe_queue(cfg: ModelConfig, logits, gates, gate_idx) -> dict:
+    """Queue places and drops of the chosen experts ``gate_idx`` (B, S, k).
+    Returns a dict of
+
+    ``cap``: ``max(1, int(capacity_factor * S * k / E))`` capped at S, per
+    row over all S positions (a bucket's padded tail included);
+    ``logits``/``gates``: (B, S, E) float32 router logits and softmax;
+    ``gate_vals``/``gate_idx``: (B, S, k) the chosen experts' gates
+    renormalised to sum 1, and the experts;
+    ``pos``: (B, S, k) int64 place of each (token, choice) in its expert's
+    queue, counted token-major then by choice (the reference's float32
+    cumulative sum, exact in integers);
+    ``within_cap``: (B, S, k) ``pos < cap``; the other pairs are dropped."""
+    b, s, e = gates.shape
+    k = gate_idx.shape[-1]
+    cap = min(max(1, int(cfg.moe.capacity_factor * s * k / e)), s)
+    gate_vals = gates.gather(-1, gate_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    choice = F.one_hot(gate_idx, e)                               # (B,S,k,E)
+    flat = choice.reshape(b, s * k, e)
+    pos = (flat.cumsum(1) - flat).reshape(b, s, k, e)
+    pos = (pos * choice).sum(-1)
+    return dict(cap=cap, logits=logits, gates=gates, gate_vals=gate_vals,
+                gate_idx=gate_idx, pos=pos, within_cap=pos < cap)
+
+
+def _experts(params, xin):
+    """The experts' GLU on their slots: xin (B, E, C, d) -> (B, E * C, d),
+    one product per expert over all rows' slots, ``silu(g) * h`` in float32
+    (the reference's ``moe`` applies silu whatever ``cfg.act`` says)."""
+    b, e, c, d = xin.shape
+    xin = xin.transpose(0, 1).reshape(e, b * c, d)
+    h = torch.bmm(xin, params["w_up"])
+    g = torch.bmm(xin, params["w_gate"])
+    h = (F.silu(g.to(torch.float32)) * h.to(torch.float32)).to(xin.dtype)
+    out = torch.bmm(h, params["w_down"])
+    return out.reshape(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
+
+
+def _dispatch_einsum(params, x, r):
+    """GShard one-hot dispatch: a (B, S, E, C) dispatch tensor gathers the
+    slots by a product, and a combine tensor of the gate values scatters
+    the experts' outputs back by another."""
+    b, s, d = x.shape
+    e, cap = r["gates"].shape[-1], r["cap"]
+    within = r["within_cap"]
+    choice = F.one_hot(r["gate_idx"], e).to(torch.float32)               # (B,S,k,E)
+    pos_onehot = F.one_hot(torch.where(within, r["pos"], 0), cap).to(torch.float32)
+    disp_k = choice[..., None] * pos_onehot[..., None, :] * within[..., None, None]
+    dispatch = disp_k.sum(2)                                              # (B,S,E,C)
+    combine = torch.einsum("bsk,bskec->bsec", r["gate_vals"], disp_k)
+    xin = torch.bmm(dispatch.to(x.dtype).reshape(b, s, e * cap).transpose(1, 2), x)
+    out_e = _experts(params, xin.reshape(b, e, cap, d))
+    out = torch.bmm(combine.to(x.dtype).reshape(b, s, e * cap), out_e)
+    return out, dispatch.sum(-1).mean((0, 1))
+
+
+def _dispatch_gather(params, x, r):
+    """Slot-table dispatch: each kept (token, choice) writes its token id
+    into slot ``expert * C + pos`` of an (E * C + 1)-slot table (dropped
+    pairs into the last, a dustbin cut off after), the experts read their
+    slots by a gather, and each token gathers its k outputs back, weighted
+    by its gates (a dropped pair reads slot 0 at weight 0)."""
+    b, s, d = x.shape
+    e, cap = r["gates"].shape[-1], r["cap"]
+    k = r["gate_idx"].shape[-1]
+    valid = r["within_cap"].reshape(b, s * k)
+    flat_slot = (r["gate_idx"] * cap + r["pos"]).reshape(b, s * k)
+    tok_ids = torch.arange(s, device=x.device)[None, :, None].expand(b, s, k).reshape(b, s * k)
+    slot = torch.where(valid, flat_slot, e * cap)
+    table = torch.zeros((b, e * cap + 1), dtype=torch.long, device=x.device)
+    table = table.scatter(1, slot, torch.where(valid, tok_ids, 0))[:, :-1]
+    occupied = torch.zeros((b, e * cap + 1), dtype=torch.bool, device=x.device)
+    occupied = occupied.scatter(1, slot, valid)[:, :-1]
+    xin = torch.gather(x, 1, table[..., None].expand(b, e * cap, d))
+    xin = torch.where(occupied[..., None], xin, 0)
+    out_e = _experts(params, xin.reshape(b, e, cap, d))
+    gflat = torch.where(valid, flat_slot, 0)
+    got = torch.gather(out_e, 1, gflat[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
+    w = (r["gate_vals"] * r["within_cap"]).to(got.dtype)
+    out = torch.einsum("bsk,bskd->bsd", w, got)
+    frac = (F.one_hot(r["gate_idx"], e) * r["within_cap"][..., None]).sum(2)
+    return out, frac.to(torch.float32).mean((0, 1))
+
+
+def moe(params, cfg: ModelConfig, x):
+    """Top-k capacity-based MoE (GShard/Switch) over x (B, S, d). Two
+    dispatch modes, as the reference's (``cfg.moe_dispatch``): "einsum"
+    (one-hot dispatch and combine products) and "gather" (a slot table,
+    gathers in and out). Both drop the same (token, choice) pairs and agree
+    to rounding. Returns ``(out, {"moe_lb", "moe_z"})``: the load-balance
+    loss ``E * sum(mean gate * share dispatched)`` and the router z-loss
+    ``mean(logsumexp(logits)^2)``, each times its coefficient."""
+    mcfg = cfg.moe
+    r = moe_route(params, cfg, x)
+    if cfg.moe_dispatch == "gather":
+        out, frac_dispatched = _dispatch_gather(params, x, r)
+    elif cfg.moe_dispatch == "einsum":
+        out, frac_dispatched = _dispatch_einsum(params, x, r)
+    else:
+        raise ValueError(f"moe_dispatch must be einsum or gather, got {cfg.moe_dispatch!r}")
+    me = r["gates"].mean((0, 1))
+    lb_loss = mcfg.num_experts * (me * frac_dispatched).sum() * mcfg.load_balance_loss
+    z_loss = (torch.logsumexp(r["logits"], -1) ** 2).mean() * mcfg.router_z_loss
+    return out, {"moe_lb": lb_loss, "moe_z": z_loss}

@@ -1,18 +1,24 @@
-"""Backbone assembly for the dense and ssm archs: init + forward.
+"""Backbone assembly for the dense, moe, ssm and hybrid archs: init +
+forward.
 
 The counterpart of ``repro.models.transformer`` for ``arch_type`` "dense"
-(attention + MLP layers) and "ssm" (Mamba2 mixer layers, no MLP). The
-reference stacks the layers' parameters on a leading ``n_blocks`` axis and
-scans over them; here ``params["blocks"]`` is a list of per-layer dicts
-(the reference's ``slot0`` subtree of each block) and a Python loop walks
-it. ``use_kernels`` sends
-attention to kernel K2 and the Mamba2 scan to kernel K3 (the reference's
-``use_pallas``).
+(attention + MLP layers), "moe" (attention + MoE layers), "ssm" (Mamba2
+mixer layers, no MLP) and "hybrid" (jamba: Mamba2 mixers with one attention
+layer per block of ``attn_every``, MoE on odd slots). The reference groups
+its layers into blocks of :func:`block_size` slots, stacks each slot's
+parameters on a leading ``n_blocks`` axis and scans over the blocks; here
+``params["blocks"]`` is a list of per-layer dicts (layer ``i`` is the
+reference's slot ``i % block_size`` of block ``i // block_size``, see
+:func:`repro_torch.models.convert.params_from_numpy`) and a Python loop
+walks it, each layer's kind given by its index (:func:`_layer_kind`).
+``use_kernels`` sends attention to kernel K2 and the Mamba2 scan to kernel
+K3 (the reference's ``use_pallas``). Encoder-decoder and VLM archs are not
+ported yet.
 
 Modes: "train" (full sequence), "prefill" (full sequence, returns the
 cache) and "decode" (one token against the cache at ``cache_index``);
 :func:`init_cache` allocates an empty cache. Caches mirror the params: a
-list of per-layer dicts under ``"blocks"``.
+list of per-layer dicts under ``"blocks"``, each of its layer's kind.
 
 Objectives: ``diffusion`` (bidirectional, time-conditioned denoiser -- the
 paper's eps_theta; see :mod:`repro_torch.diffusion.lm`) and ``ar``.
@@ -41,9 +47,47 @@ def _dtype(cfg: ModelConfig):
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "ssm"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet (dense and ssm only)")
+            f"arch_type {cfg.arch_type!r} is not ported yet (encdec and vlm "
+            "are still to port)")
+
+
+def block_size(cfg: ModelConfig) -> int:
+    """Layers per block of the reference's stacked layout: ``attn_every``
+    for hybrid, else 1."""
+    if cfg.arch_type == "hybrid":
+        return cfg.attn_every
+    return 1
+
+
+def n_blocks(cfg: ModelConfig) -> int:
+    bs = block_size(cfg)
+    if cfg.n_layers % bs:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of the "
+                         f"block size {bs}")
+    return cfg.n_layers // bs
+
+
+def _layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
+    """(mixer, mlp) kinds of layer ``i``, from its slot ``i % block_size``:
+    mixer "attn" or "ssm"; mlp "dense", "moe" or "none" (pure ssm)."""
+    slot = i % block_size(cfg)
+    if cfg.arch_type == "ssm":
+        mixer = "ssm"
+    elif cfg.arch_type == "hybrid":
+        mixer = "attn" if slot == (cfg.attn_every // 2) else "ssm"
+    else:
+        mixer = "attn"
+    if cfg.moe is None:
+        mlp = "dense"
+    elif cfg.moe_every and cfg.moe_every > 1:
+        mlp = "moe" if (slot % cfg.moe_every) == 1 else "dense"
+    else:
+        mlp = "moe"
+    if cfg.arch_type == "ssm":
+        mlp = "none"  # mamba2 blocks have no separate MLP
+    return mixer, mlp
 
 
 def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
@@ -64,16 +108,22 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     n = lambda shape: torch.randn(shape, generator=gen, device=device)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     d = cfg.d_model
+    n_blocks(cfg)      # raises unless the layers fill whole blocks
     blocks = []
-    for _ in range(cfg.n_layers):
-        if cfg.arch_type == "ssm":      # mamba2 layers have no separate MLP
-            blocks.append({"norm1": zeros(d),
-                           "ssm": S.init_ssm(gen, cfg, dtype, device)})
-            continue
-        blocks.append({"norm1": zeros(d),
-                       "attn": L.init_attention(gen, cfg, dtype, device),
-                       "norm2": zeros(d),
-                       "mlp": L.init_mlp(gen, cfg, dtype, device)})
+    for i in range(cfg.n_layers):
+        mixer, mlpk = _layer_kind(cfg, i)
+        layer = {"norm1": zeros(d)}
+        if mixer == "attn":
+            layer["attn"] = L.init_attention(gen, cfg, dtype, device)
+        else:
+            layer["ssm"] = S.init_ssm(gen, cfg, dtype, device)
+        if mlpk != "none":
+            layer["norm2"] = zeros(d)
+            if mlpk == "dense":
+                layer["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+            else:
+                layer["moe"] = L.init_moe(gen, cfg, dtype, device)
+        blocks.append(layer)
     p: dict[str, Any] = {
         "embed": (n((cfg.vocab_size, d)) * 0.02).to(dtype),
         "blocks": blocks,
@@ -106,7 +156,8 @@ def _time_mlp(tm, te):
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device=None) -> dict:
     """A zeroed decode cache ``{"blocks": [per-layer dict]}`` on ``device``
-    (None means CUDA). Attention layers hold ``k`` and ``v`` of shape
+    (None means CUDA), each layer's entry of its mixer's kind (jamba mixes
+    the two in one model). Attention layers hold ``k`` and ``v`` of shape
     (batch, L, n_kv_heads, head_dim): L is ``cache_len``, or at most the
     window for a sliding-window arch (a ring); ssm layers hold ``conv``
     (batch, conv_width - 1, d_inner + 2 N) and a float32 ``state`` (batch,
@@ -116,8 +167,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     dtype = dtype or _dtype(cfg)
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     blocks = []
-    for _ in range(cfg.n_layers):
-        if cfg.arch_type == "ssm":
+    for i in range(cfg.n_layers):
+        if _layer_kind(cfg, i)[0] == "ssm":
             d_inner, n_heads = S.ssm_dims(cfg)
             n = cfg.ssm.state_dim
             blocks.append({"conv": zeros(batch, cfg.ssm.conv_width - 1, d_inner + 2 * n),
@@ -136,8 +187,10 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             causal: Optional[bool] = None, valid_len=None,
             logits: bool = True, use_kernels: bool = False) -> dict:
     """Forward over tokens (an embedding lookup) or continuous inputs.
-    Returns a dict with ``hidden``, ``cache``, ``eps`` (diffusion objective
-    with ``embeds``) and ``logits`` (float32, only when ``logits=True``).
+    Returns a dict with ``hidden``, ``cache``, ``aux`` (the MoE layers'
+    ``moe_lb`` and ``moe_z`` losses, each summed over the layers; empty
+    without MoE), ``eps`` (diffusion objective with ``embeds``) and
+    ``logits`` (float32, only when ``logits=True``).
 
     tokens: (B, S) int; embeds: (B, S, d_model); t_cond: scalar or (B,)
     diffusion time. mode: "train" (full sequence, cache None), "prefill"
@@ -171,26 +224,34 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     collect_kv = mode == "prefill"
     new_blocks = [] if (cache is not None or collect_kv) else None
+    aux: dict[str, Any] = {}
     for i, bp in enumerate(params["blocks"]):
+        mixer, mlpk = _layer_kind(cfg, i)
         c = cache["blocks"][i] if cache is not None else None
         hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
-        if "ssm" in bp:
+        if mixer == "ssm":
             out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=c,
                                     use_kernels=use_kernels)
-            h = h + out
         else:
             out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
                                   cache=c, cache_index=cache_index,
                                   return_kv=collect_kv, valid_len=valid_len,
                                   use_kernels=use_kernels)
-            h = h + out
+        h = h + out
+        if mlpk != "none":
             hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
-            h = h + L.mlp(bp["mlp"], cfg, hn)
+            if mlpk == "dense":
+                h = h + L.mlp(bp["mlp"], cfg, hn)
+            else:
+                out, moe_aux = L.moe(bp["moe"], cfg, hn)
+                h = h + out
+                for k, v in moe_aux.items():
+                    aux[k] = aux[k] + v if k in aux else v
         if new_blocks is not None:
             new_blocks.append(nc if nc is not None else c)
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    out = {"hidden": h,
+    out = {"hidden": h, "aux": aux,
            "cache": None if new_blocks is None else dict(cache or {}, blocks=new_blocks)}
     if cfg.objective == "diffusion" and embeds is not None:
         out["eps"] = L.matmul(h, params["eps_head"])

@@ -19,6 +19,9 @@ surviving in-flight group; the executor steps every row at its own count
 (a per-row ``k`` vector). ``seq_len_buckets=(...)`` rounds request lengths
 up to bucket edges; a per-row ``lens`` vector masks each row's padded tail
 out of attention, and every decode is cut back to the true ``seq_len``.
+MoE capacity stays per row over the bucket's whole length, the padded tail
+included (as in the reference): a bucketed MoE row keeps a bucket-shape
+dependence, and rows never share capacity.
 
 Scheduling.  A tick selects up to ``steps_per_tick`` groups (default all)
 ordered by effective priority (with starvation aging), earliest absolute
@@ -160,7 +163,8 @@ class ARServeEngine:
         """Pad a prefilled attention layer's k and v along the sequence to
         ``max_len`` slots, unless they are a sliding-window ring (the
         reference pads axis 2 of its stacked leaves; a layer here has no
-        stacked axis). SSM layers keep their fixed-size conv and state."""
+        stacked axis). SSM layers (all of mamba2's, seven in eight of
+        jamba's) keep their fixed-size conv and state."""
         w = self.cfg.sliding_window
         out = dict(layer)
         for name in ("k", "v"):

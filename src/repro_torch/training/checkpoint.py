@@ -3,8 +3,10 @@
 holding ``arrays.npz`` (``a0``, ``a1``, ...) and ``manifest.json``
 (``paths``, ``dtypes``, ``shapes``, ``step``, ``metadata``), written
 atomically. Leaves are keyed by the reference's path strings, e.g.
-``['blocks']/['slot0']/['attn']/['wq']``, with the layers stacked on a
-leading axis, so either package reads a checkpoint the other wrote.
+``['blocks']/['slot0']/['attn']/['wq']``, each slot's layers stacked on a
+leading block axis (layer ``i`` of the port is slot ``i % bs`` of block
+``i // bs``; ``convert.layers_per_block`` reads ``bs`` off the layers), so
+either package reads a checkpoint the other wrote.
 
 bfloat16 leaves are stored as numpy stores ``ml_dtypes.bfloat16`` arrays:
 their raw 2-byte words (``'V2'``), with ``"bfloat16"`` in the manifest's
@@ -22,7 +24,7 @@ import tempfile
 import numpy as np
 import torch
 
-from ..models.convert import params_to_numpy
+from ..models.convert import layers_per_block, params_to_numpy
 
 
 def _flatten(tree, prefix=()):
@@ -75,20 +77,27 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _rebuild(node, prefix, load, layer=None):
+def _rebuild_layers(layers, prefix, load):
+    """Layer ``i`` of a per-layer list reads slice ``i // bs`` of the
+    stacked ``['blocks']/['slot<i % bs>']/...`` entries."""
+    bs = layers_per_block(layers)
+    return [_rebuild(lay, prefix + ("['blocks']", f"['slot{i % bs}']"), load, i // bs)
+            for i, lay in enumerate(layers)]
+
+
+def _rebuild(node, prefix, load, block=None):
     """``node``'s structure with each leaf replaced by ``load(path, leaf,
-    layer)``; the leaves of a per-layer list under ``"blocks"`` read slice
-    ``layer`` of the stacked ``['blocks']/['slot0']/...`` entries."""
+    block)``; the leaves of a per-layer list under ``"blocks"`` read their
+    block's slice of their slot's stacked entries."""
     if isinstance(node, dict):
-        return {k: [_rebuild(lay, prefix + ("['blocks']", "['slot0']"), load, i)
-                    for i, lay in enumerate(v)]
-                if k == "blocks" and isinstance(v, list) and layer is None
-                else _rebuild(v, prefix + (f"[{k!r}]",), load, layer)
+        return {k: _rebuild_layers(v, prefix, load)
+                if k == "blocks" and isinstance(v, list) and block is None
+                else _rebuild(v, prefix + (f"[{k!r}]",), load, block)
                 for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_rebuild(v, prefix + (f"[{i}]",), load, layer)
+        return type(node)(_rebuild(v, prefix + (f"[{i}]",), load, block)
                           for i, v in enumerate(node))
-    return None if node is None else load("/".join(prefix), node, layer)
+    return None if node is None else load("/".join(prefix), node, block)
 
 
 def restore(ckpt_dir: str, like, step: int | None = None):
@@ -107,13 +116,13 @@ def restore(ckpt_dir: str, like, step: int | None = None):
     entries = {p: (i, d) for i, (p, d) in
                enumerate(zip(manifest["paths"], manifest["dtypes"]))}
 
-    def load(path, leaf, layer):
+    def load(path, leaf, block):
         if path not in entries:
             raise KeyError(f"checkpoint missing {path}")
         i, dtype = entries[path]
         arr = data[f"a{i}"]
-        if layer is not None:
-            arr = arr[layer]
+        if block is not None:
+            arr = arr[block]
         if dtype == "bfloat16":
             t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
         else:

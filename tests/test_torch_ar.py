@@ -1,14 +1,20 @@
 """Autoregressive serving: the port's token forward, prefill cache, decode
 step and ``ARServeEngine`` against the JAX package's, with the reference's
 own weights carried over (``params_from_numpy``), on the reduced float32
-configs of gemma-2b (MQA), mamba2-2.7b (the SSM decode cache) and
-h2o-danube-3-4b (GQA, sliding window 16: the KV ring).
+configs of gemma-2b (MQA), mamba2-2.7b (the SSM decode cache),
+h2o-danube-3-4b (GQA, sliding window 16: the KV ring), mixtral-8x7b (MoE
+behind a window-16 ring) and jamba-1.5-large (8 layers, attention at
+layer 4: a cache of both kinds). MoE runs at capacity_factor 100, as in
+the reference's own cache test: a decode step (S 1) drops no (token,
+choice) pair, while a full forward at capacity 1.25 would.
 
 Tolerances: across frameworks, logits and caches at rtol = atol = 1e-5
 (float32 matmul summation order); greedy tokens equal. Within the port,
 prefill-then-decode against the full forward at the reference's own
 tolerances (``tests/test_arch_smoke.py``): rtol 2e-3 and atol 2e-3 x
 max|logit| (1e-3 for the ring)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +33,7 @@ from repro_torch.serving.engine import ARServeEngine, Request
 from repro_torch.training.steps import make_decode_step, make_prefill_step
 
 F32 = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ["gemma_2b", "mamba2_2p7b", "h2o_danube_3_4b"]
+ARCHS = ["gemma_2b", "mamba2_2p7b", "h2o_danube_3_4b", "mixtral_8x7b", "jamba_1p5_large"]
 
 
 def _np(tree):
@@ -37,6 +43,9 @@ def _np(tree):
 def _models(arch):
     rcfg = ref_get_config(arch).reduced().with_(objective="ar")
     pcfg = get_config(arch).reduced().with_(objective="ar")
+    if pcfg.moe is not None:
+        rcfg = rcfg.with_(moe=dataclasses.replace(rcfg.moe, capacity_factor=100.0))
+        pcfg = pcfg.with_(moe=dataclasses.replace(pcfg.moe, capacity_factor=100.0))
     rp = RT.init_params(rcfg, jax.random.PRNGKey(0))
     pp = params_from_numpy(_np(rp), pcfg, "cpu")
     return rcfg, pcfg, rp, pp

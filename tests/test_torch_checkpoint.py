@@ -52,7 +52,7 @@ def _manifest(step_dir):
         return json.load(f)
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b", "mixtral_8x7b", "jamba_1p5_large"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reference_checkpoint_restores_in_port(tmp_path, arch, dtype):
     rcfg, pcfg, rp = _models(arch, dtype)
@@ -63,7 +63,7 @@ def test_reference_checkpoint_restores_in_port(tmp_path, arch, dtype):
     _assert_bitwise(got, params_from_numpy(jax.tree.map(np.asarray, rp), pcfg, "cpu"))
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b", "mixtral_8x7b", "jamba_1p5_large"])
 def test_port_checkpoint_restores_in_reference(tmp_path, arch):
     rcfg, pcfg, rp = _models(arch, "float32")
     pp = params_from_numpy(jax.tree.map(np.asarray, rp), pcfg, "cpu")

@@ -91,6 +91,7 @@ def _launched_once(fn, routes, dtype, before, before_routes):
     (2, 33, 47, 4, 2, 128, True, 7),       # ragged, window, D 128
     (2, 200, 200, 8, 1, 256, True, 64),    # causal with a window at D 256
     (4, 256, 256, 8, 1, 256, False, 0),    # gemma-2b's full width
+    (4, 256, 256, 32, 8, 128, False, 4096),  # mixtral-8x7b's: GQA 32/8, D 128, window
 ])
 def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
     g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)

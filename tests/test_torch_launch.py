@@ -79,7 +79,8 @@ def test_metrics_ndjson_driver(capsys, tmp_path):
     assert m["driver_loop_seconds"]["count"] > 0 and m["driver_crash_total"] == 0
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b", "h2o_danube_3_4b"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b", "h2o_danube_3_4b",
+                                  "mixtral_8x7b", "grok_1_314b", "jamba_1p5_large"])
 def test_ar_mode(capsys, arch):
     main(["--arch", arch, *CPU, "--mode", "ar", "--requests", "2", "--max-new", "5",
           "--seq-len", "8"])
