@@ -120,9 +120,11 @@ class ModelConfig:
         return self.with_(**kw)
 
 
-# the architectures ported so far (the JAX package has eleven)
-ARCH_IDS = ["gemma_2b", "h2o_danube_3_4b", "mamba2_2p7b", "mixtral_8x7b",
-            "grok_1_314b", "jamba_1p5_large"]
+ARCH_IDS = [
+    "whisper_tiny", "h2o_danube_3_4b", "paligemma_3b", "mixtral_8x7b",
+    "grok_1_314b", "mamba2_2p7b", "glm4_9b", "gemma_2b", "granite_3_8b",
+    "jamba_1p5_large", "cifar10_scorenet",
+]
 
 
 def get_config(arch: str, **overrides) -> ModelConfig:

@@ -26,21 +26,31 @@ from ..models import transformer as T
 X0_SCALE = 25.0    # x0 = embed * X0_SCALE so data std ~ 0.5
 
 
-def make_eps_fn(params, cfg: ModelConfig, *, valid_len=None,
-                use_kernels: bool = False):
+def make_eps_fn(params, cfg: ModelConfig, *, prefix=None, frames=None,
+                valid_len=None, use_kernels: bool = False):
     """eps_theta(x, t) closure for the DEIS solvers; x: (B, S, D), t scalar
     or (B,). Computes the eps head only (no vocabulary logits).
 
-    ``valid_len``: optional (B,) int per-row true length for bucket-padded
-    batches, threaded to attention so a row's trajectory does not depend on
-    the bucket's tail padding. ``use_kernels``: attention through kernel K2
-    (which refuses ``valid_len``) and the Mamba2 scan through K3."""
+    ``prefix``: (B, P, D) image-patch embeddings of a vlm arch, put in
+    front of x at every evaluation (``valid_len`` grows by P, the prefix
+    being all valid) and sliced off the eps. ``frames``: (B, F, D) encoder
+    inputs of an encdec arch, passed to every forward (the encoder runs at
+    every evaluation, as in the reference). ``valid_len``: optional (B,)
+    int per-row true length for bucket-padded batches, threaded to
+    attention so a row's trajectory does not depend on the bucket's tail
+    padding. ``use_kernels``: self-attention through kernel K2 (which
+    refuses ``valid_len``) and the Mamba2 scan through K3."""
+    vlm = cfg.arch_type == "vlm" and prefix is not None
+    p = prefix.shape[1] if vlm else 0
+
     def eps_fn(x, t):
         t_b = t.to(torch.float32).expand(x.shape[0])
-        out = T.forward(params, cfg, embeds=x, t_cond=t_b, causal=False,
-                        valid_len=valid_len, logits=False,
+        xin = torch.cat([prefix.to(x.dtype), x], dim=1) if vlm else x
+        vl = valid_len + p if (vlm and valid_len is not None) else valid_len
+        out = T.forward(params, cfg, embeds=xin, t_cond=t_b, causal=False,
+                        frames=frames, valid_len=vl, logits=False,
                         use_kernels=use_kernels)
-        return out["eps"].to(x.dtype)
+        return out["eps"][:, p:].to(x.dtype)
     return eps_fn
 
 
@@ -54,8 +64,9 @@ def decode_tokens(params, cfg: ModelConfig, x0):
 
 
 def sample_tokens(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
-                  batch: int, seq_len: int, prior_std: float,
-                  use_kernels: bool = False, hooks=None, x_T=None, noise=None):
+                  batch: int, seq_len: int, prior_std: float, prefix=None,
+                  frames=None, use_kernels: bool = False, hooks=None, x_T=None,
+                  noise=None):
     """Generate a batch of token sequences with one (unstacked) DEIS plan in
     one call, on the parameters' device. Returns ``(tokens, x0)``.
 
@@ -68,14 +79,18 @@ def sample_tokens(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
     ``(batch, seq_len, d_model)`` is drawn from the first, a stochastic
     plan's noise from the second. ``x_T`` replaces the prior draw and
     ``noise`` (indexable by step) the solve noise, so a test can hand both
-    frameworks the same numbers; ``gens`` may then be None."""
+    frameworks the same numbers; ``gens`` may then be None. ``prefix``
+    (vlm) and ``frames`` (encdec) condition every evaluation
+    (:func:`make_eps_fn`); the prior and x0 cover the ``seq_len`` text
+    positions only."""
     device = params["embed"].device
     plan = plan.to(device)
     g_prior, g_solve = gens if gens is not None else (None, None)
     if x_T is None:
         x_T = torch.randn((batch, seq_len, cfg.d_model), generator=g_prior,
                           device=device, dtype=torch.float32) * prior_std
-    eps_fn = make_eps_fn(params, cfg, use_kernels=use_kernels)
+    eps_fn = make_eps_fn(params, cfg, prefix=prefix, frames=frames,
+                         use_kernels=use_kernels)
     x0 = SAMPLER.sample(plan, eps_fn, x_T, g_solve, hooks=hooks, noise=noise)
     return decode_tokens(params, cfg, x0), x0
 

@@ -28,7 +28,11 @@ AR mode (greedy prefill + decode over the KV / SSM cache):
         --mode ar --requests 4 --max-new 16
 
 On the CPU add ``--device cpu --reduced``. ``--data-parallel`` (the
-reference's request-axis mesh) is not ported and raises.
+reference's request-axis mesh) is not ported and raises. A vlm arch
+(paligemma_3b) serves as a text-only decoder, without its image prefix, as
+in the reference; an encdec arch (whisper_tiny) raises, since the engines
+take no encoder frames (run it through ``sample_tokens(frames=)`` or the
+prefill and decode steps).
 """
 from __future__ import annotations
 

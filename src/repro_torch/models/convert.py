@@ -6,7 +6,9 @@ here without the port importing JAX. The reference's ``blocks`` hold one
 subtree per slot (``slot0`` .. ``slot{bs-1}``, ``bs`` layers a block: 1,
 or ``attn_every`` for hybrid), each stacked on a leading ``n_blocks``
 axis; they are split into the port's per-layer list, layer ``i`` being
-slot ``i % bs`` of block ``i // bs``. :func:`params_to_numpy` restacks
+slot ``i % bs`` of block ``i // bs``. An encdec arch's ``encoder`` is
+stacked the same way over its ``encoder_layers`` layers, one slot a block,
+and splits into a per-layer list too. :func:`params_to_numpy` restacks
 them (checkpoints are written in the reference's layout).
 """
 from __future__ import annotations
@@ -17,6 +19,10 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .transformer import block_size
+
+# the per-layer lists of the port's params (and caches), each the stack of
+# a reference subtree of ``slot<j>`` entries
+LAYER_LISTS = ("blocks", "encoder")
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -45,19 +51,23 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     the block's ``slot{i % bs}`` subtree as it stands: ``attn`` or ``ssm``
     (float32 ``A_log``, ``dt_bias``, ``D``; conv weights ``(K, C)``), then
     ``norm2`` with ``mlp`` or ``moe`` (float32 ``router``; experts (E, d,
-    f) and (E, f, d)) unless the layer is a pure ssm one."""
+    f) and (E, f, d)) unless the layer is a pure ssm one; an encdec
+    decoder layer's ``norm_x`` and ``cross`` too. The ``encoder`` (encdec)
+    splits into its ``encoder_layers`` layers, one slot a block."""
     device = resolve_device(device)
-    bs = block_size(cfg)
+    layout = {"blocks": (cfg.n_layers, block_size(cfg)),
+              "encoder": (cfg.encoder_layers, 1)}
     out = {}
     for name, sub in tree.items():
-        if name == "blocks":
+        if name in LAYER_LISTS:
+            n, bs = layout[name]
             if set(sub) != {f"slot{j}" for j in range(bs)}:
-                raise ValueError(f"blocks hold {sorted(sub)}, {cfg.name} has "
+                raise ValueError(f"{name} hold {sorted(sub)}, {cfg.name} has "
                                  f"{bs} slots a block")
-            out["blocks"] = [
+            out[name] = [
                 _map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i // bs], device),
                      sub[f"slot{i % bs}"])
-                for i in range(cfg.n_layers)]
+                for i in range(n)]
         else:
             out[name] = _map(lambda a: tensor_from_numpy(a, device), sub)
     return out
@@ -100,9 +110,10 @@ def _restack(layers: list) -> dict:
 def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`: the port's params (or a
     cache, or a tuple holding them) as the reference's tree of numpy arrays,
-    each per-layer list under ``"blocks"`` restacked into its slots."""
+    each per-layer list under ``"blocks"`` or ``"encoder"`` restacked into
+    its slots."""
     if isinstance(tree, dict):
-        return {k: _restack(v) if k == "blocks" and isinstance(v, list)
+        return {k: _restack(v) if k in LAYER_LISTS and isinstance(v, list)
                 else params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)

@@ -1,10 +1,10 @@
 """Backbone building blocks: norms, RoPE, attention (GQA/MQA, sliding
 window, per-row key masking, logit softcap, the KV cache and its
-sliding-window ring; kernel K2 on request), GLU MLPs, the top-k capacity
-MoE (GShard one-hot or slot-table dispatch, with its aux losses) and the
-diffusion time embedding.
+sliding-window ring, cross-attention; kernel K2 on request), GLU MLPs, the
+top-k capacity MoE (GShard one-hot or slot-table dispatch, with its aux
+losses) and the diffusion time embedding.
 
-The counterpart of ``repro.models.layers`` (no cross-attention yet).
+The counterpart of ``repro.models.layers``.
 Plain functions over parameter dicts with the reference's layouts: weights
 ``(d_in, d_out)`` applied as ``x @ w``, q/k/v as ``(B, S, H, D)``, experts
 ``(E, d_in, d_out)``. Every matmul accumulates in float32 and rounds once
@@ -143,8 +143,8 @@ def _decode_mask(cfg: ModelConfig, positions, s_cache: int, cache_index: int,
 
 
 def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
-              cache=None, cache_index=None, return_kv: bool = False,
-              valid_len=None, use_kernels=False):
+              cache=None, cache_index=None, kv_override=None,
+              return_kv: bool = False, valid_len=None, use_kernels=False):
     """Multi-head attention with GQA + RoPE + optional SWA and a KV cache.
 
     cache: None (a full sequence) or ``{"k", "v"}`` of shape (B, S_cache,
@@ -157,6 +157,11 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     valid_len: optional (B,) int -- per-row true sequence length when rows
     are right-padded to a bucketed S; key positions >= valid_len are masked
     out so a row's content does not depend on the bucket it landed in.
+    kv_override: ``(k, v)`` of shape (B, Sk, KV, D), already projected:
+    cross-attention. q gets no RoPE, every query attends to every key, and
+    no cache is read or written; it takes the plain route whatever
+    ``use_kernels`` says, as the reference's ``use_pallas`` route excludes
+    it.
     use_kernels: the scores run through kernel K2
     (:func:`repro_torch.kernels.ops.flash_attention`), which reads the KV
     heads in place. K2 has no padding operand, no softcap and no cache, so
@@ -169,6 +174,12 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = matmul(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
+    if kv_override is not None:
+        n_rep = cfg.n_heads // kv_override[0].shape[2]
+        k, v = (_repeat_kv(t, n_rep) for t in kv_override)
+        mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = attention_scores(q, k, v, mask, cfg.logit_softcap)
+        return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), None
     k = matmul(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = matmul(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)

@@ -1,24 +1,32 @@
-"""Backbone assembly for the dense, moe, ssm and hybrid archs: init +
-forward.
+"""Backbone assembly for every arch family: init + forward.
 
 The counterpart of ``repro.models.transformer`` for ``arch_type`` "dense"
 (attention + MLP layers), "moe" (attention + MoE layers), "ssm" (Mamba2
-mixer layers, no MLP) and "hybrid" (jamba: Mamba2 mixers with one attention
-layer per block of ``attn_every``, MoE on odd slots). The reference groups
-its layers into blocks of :func:`block_size` slots, stacks each slot's
-parameters on a leading ``n_blocks`` axis and scans over the blocks; here
-``params["blocks"]`` is a list of per-layer dicts (layer ``i`` is the
+mixer layers, no MLP), "hybrid" (jamba: Mamba2 mixers with one attention
+layer per block of ``attn_every``, MoE on odd slots), "encdec" (whisper: a
+bidirectional encoder over ``frames``, the stubbed audio frontend's
+embeddings, and a decoder whose layers cross-attend to its output) and
+"vlm" (paligemma: image-patch ``prefix`` embeddings in front of the text).
+The reference groups its layers into blocks of :func:`block_size` slots,
+stacks each slot's parameters on a leading ``n_blocks`` axis and scans over
+the blocks; here ``params["blocks"]`` (and the encoder's
+``params["encoder"]``) is a list of per-layer dicts (layer ``i`` is the
 reference's slot ``i % block_size`` of block ``i // block_size``, see
 :func:`repro_torch.models.convert.params_from_numpy`) and a Python loop
 walks it, each layer's kind given by its index (:func:`_layer_kind`).
-``use_kernels`` sends attention to kernel K2 and the Mamba2 scan to kernel
-K3 (the reference's ``use_pallas``). Encoder-decoder and VLM archs are not
-ported yet.
+``use_kernels`` sends the decoder's self-attention to kernel K2 and the
+Mamba2 scan to kernel K3 (the reference's ``use_pallas``). The encoder and
+cross-attention take the plain route, as in the reference (its
+``_run_encoder`` passes no ``use_pallas``, and its Pallas route excludes
+``kv_override``).
 
 Modes: "train" (full sequence), "prefill" (full sequence, returns the
 cache) and "decode" (one token against the cache at ``cache_index``);
 :func:`init_cache` allocates an empty cache. Caches mirror the params: a
-list of per-layer dicts under ``"blocks"``, each of its layer's kind.
+list of per-layer dicts under ``"blocks"``, each of its layer's kind, and
+for encdec a list of per-decoder-layer cross-attention ``{"k", "v"}``
+under ``"cross"`` (computed once from the encoder's output; decode reads it
+and runs no encoder).
 
 Objectives: ``diffusion`` (bidirectional, time-conditioned denoiser -- the
 paper's eps_theta; see :mod:`repro_torch.diffusion.lm`) and ``ar``.
@@ -46,11 +54,13 @@ def _dtype(cfg: ModelConfig):
     return _DTYPES[cfg.dtype]
 
 
+ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} is not ported yet (encdec and vlm "
-            "are still to port)")
+    if cfg.arch_type not in ARCH_TYPES:
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r}; the archs are "
+                         f"{ARCH_TYPES}")
 
 
 def block_size(cfg: ModelConfig) -> int:
@@ -90,6 +100,31 @@ def _layer_kind(cfg: ModelConfig, i: int) -> tuple[str, str]:
     return mixer, mlp
 
 
+def _init_layer(gen, cfg: ModelConfig, i: int, dtype, device,
+                cross: bool = False) -> dict:
+    """Layer ``i``'s parameters: ``norm1`` and ``attn`` or ``ssm``; for a
+    decoder layer of an encdec arch (``cross``) ``norm_x`` and the
+    cross-attention's ``cross``; then ``norm2`` with ``mlp`` or ``moe``
+    unless the layer is a pure ssm one."""
+    mixer, mlpk = _layer_kind(cfg, i)
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    layer = {"norm1": zeros(cfg.d_model)}
+    if mixer == "attn":
+        layer["attn"] = L.init_attention(gen, cfg, dtype, device)
+    else:
+        layer["ssm"] = S.init_ssm(gen, cfg, dtype, device)
+    if cross:
+        layer["norm_x"] = zeros(cfg.d_model)
+        layer["cross"] = L.init_attention(gen, cfg, dtype, device)
+    if mlpk != "none":
+        layer["norm2"] = zeros(cfg.d_model)
+        if mlpk == "dense":
+            layer["mlp"] = L.init_mlp(gen, cfg, dtype, device)
+        else:
+            layer["moe"] = L.init_moe(gen, cfg, dtype, device)
+    return layer
+
+
 def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     """Random parameters with the reference's shapes and scales
     (``repro.models.transformer.init_params`` and the layer initialisers).
@@ -98,7 +133,9 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     ``device=None`` means CUDA. The values differ from the reference's
     (threefry and torch draw different numbers); use
     :func:`repro_torch.models.convert.params_from_numpy` to carry the
-    reference's own weights over."""
+    reference's own weights over. An encdec arch adds ``encoder`` (a list
+    of ``encoder_layers`` attention + MLP layers, without cross-attention)
+    and ``enc_final_norm``."""
     _check_arch(cfg)
     device = resolve_device(device)
     gen = generator
@@ -109,21 +146,9 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     d = cfg.d_model
     n_blocks(cfg)      # raises unless the layers fill whole blocks
-    blocks = []
-    for i in range(cfg.n_layers):
-        mixer, mlpk = _layer_kind(cfg, i)
-        layer = {"norm1": zeros(d)}
-        if mixer == "attn":
-            layer["attn"] = L.init_attention(gen, cfg, dtype, device)
-        else:
-            layer["ssm"] = S.init_ssm(gen, cfg, dtype, device)
-        if mlpk != "none":
-            layer["norm2"] = zeros(d)
-            if mlpk == "dense":
-                layer["mlp"] = L.init_mlp(gen, cfg, dtype, device)
-            else:
-                layer["moe"] = L.init_moe(gen, cfg, dtype, device)
-        blocks.append(layer)
+    encdec = cfg.arch_type == "encdec"
+    blocks = [_init_layer(gen, cfg, i, dtype, device, cross=encdec)
+              for i in range(cfg.n_layers)]
     p: dict[str, Any] = {
         "embed": (n((cfg.vocab_size, d)) * 0.02).to(dtype),
         "blocks": blocks,
@@ -136,6 +161,10 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
         p["time_mlp"] = {"w1": (n((te, d)) * 0.02).to(dtype), "b1": zeros(d),
                          "w2": (n((d, d)) * 0.02).to(dtype), "b2": zeros(d)}
         p["eps_head"] = (n((d, d)) * 0.02).to(dtype)
+    if encdec:
+        p["encoder"] = [_init_layer(gen, cfg, 0, dtype, device)
+                        for _ in range(cfg.encoder_layers)]
+        p["enc_final_norm"] = zeros(d)
     return p
 
 
@@ -153,19 +182,37 @@ def _time_mlp(tm, te):
     return (te @ tm["w2"] + tm["b2"])[:n]
 
 
+def _cross_kv(cfg: ModelConfig, layer: dict, enc_out) -> dict:
+    """A decoder layer's cross-attention ``{"k", "v"}``, each (B, F,
+    n_kv_heads, head_dim), projected from the encoder's output (B, F,
+    d_model) with its ``cross`` block's ``wk`` and ``wv``."""
+    b, hd = enc_out.shape[0], cfg.resolved_head_dim
+    p = layer["cross"]
+    return {"k": L.matmul(enc_out, p["wk"]).reshape(b, -1, cfg.n_kv_heads, hd),
+            "v": L.matmul(enc_out, p["wv"]).reshape(b, -1, cfg.n_kv_heads, hd)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
-               device=None) -> dict:
+               device=None, enc_out=None, params=None) -> dict:
     """A zeroed decode cache ``{"blocks": [per-layer dict]}`` on ``device``
     (None means CUDA), each layer's entry of its mixer's kind (jamba mixes
     the two in one model). Attention layers hold ``k`` and ``v`` of shape
     (batch, L, n_kv_heads, head_dim): L is ``cache_len``, or at most the
     window for a sliding-window arch (a ring); ssm layers hold ``conv``
     (batch, conv_width - 1, d_inner + 2 N) and a float32 ``state`` (batch,
-    H, P, N). ``dtype`` (a torch dtype) defaults to the config's."""
+    H, P, N). ``dtype`` (a torch dtype) defaults to the config's. Given
+    ``enc_out`` and ``params``, an encdec arch adds ``"cross"``, one ``{"k",
+    "v"}`` per decoder layer projected with ``params``' cross blocks;
+    without them the cache has no ``"cross"`` (decode then raises until
+    prefill's is put in), where the reference fills zeros that decode
+    would attend to as if they were the encoder's."""
     _check_arch(cfg)
+    if (enc_out is None) != (params is None):
+        raise ValueError("init_cache: the cross cache needs both enc_out= and params=")
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    hd = cfg.resolved_head_dim
     blocks = []
     for i in range(cfg.n_layers):
         if _layer_kind(cfg, i)[0] == "ssm":
@@ -176,15 +223,64 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                                           dt=torch.float32)})
         else:
             n_slots = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-            hd = cfg.resolved_head_dim
             blocks.append({"k": zeros(batch, n_slots, cfg.n_kv_heads, hd),
                            "v": zeros(batch, n_slots, cfg.n_kv_heads, hd)})
-    return {"blocks": blocks}
+    cache = {"blocks": blocks}
+    if cfg.arch_type == "encdec" and enc_out is not None:
+        cache["cross"] = [_cross_kv(cfg, layer, enc_out) for layer in params["blocks"]]
+    return cache
 
 
-def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
-            mode: str = "train", cache=None, cache_index=None, t_cond=None,
-            causal: Optional[bool] = None, valid_len=None,
+def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
+                 causal, cache=None, cache_index=None, cross=None,
+                 collect_kv=False, valid_len=None, use_kernels=False):
+    """Layer ``i`` (the reference's ``_apply_block`` for one slot): the
+    mixer and its residual; for a decoder layer of an encdec arch, given
+    ``cross`` (its ``{"k", "v"}``), ``norm_x`` and cross-attention with its
+    residual; then the MLP or MoE (whose aux losses are added into
+    ``aux``). Returns ``(h, the layer's cache)``."""
+    mixer, mlpk = _layer_kind(cfg, i)
+    hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
+    if mixer == "ssm":
+        out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=cache,
+                                use_kernels=use_kernels)
+    else:
+        out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
+                              cache=cache, cache_index=cache_index,
+                              return_kv=collect_kv, valid_len=valid_len,
+                              use_kernels=use_kernels)
+    h = h + out
+    if cross is not None:
+        hx = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
+        out, _ = L.attention(bp["cross"], cfg, hx, positions, causal=False,
+                             kv_override=(cross["k"], cross["v"]))
+        h = h + out
+    if mlpk != "none":
+        hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
+        if mlpk == "dense":
+            h = h + L.mlp(bp["mlp"], cfg, hn)
+        else:
+            out, moe_aux = L.moe(bp["moe"], cfg, hn)
+            h = h + out
+            for k, v in moe_aux.items():
+                aux[k] = aux[k] + v if k in aux else v
+    return h, nc
+
+
+def _run_encoder(params, cfg: ModelConfig, frames):
+    """The encoder over ``frames`` (B, F, d_model): bidirectional attention
+    + MLP layers on the plain route, then ``enc_final_norm``."""
+    h = frames.to(_dtype(cfg))
+    b, f, _ = h.shape
+    positions = torch.arange(f, device=h.device)[None].expand(b, f)
+    for layer in params["encoder"]:
+        h, _ = _apply_layer(cfg, 0, layer, h, positions, {}, causal=False)
+    return L.rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
+            frames=None, mode: str = "train", cache=None, cache_index=None,
+            t_cond=None, causal: Optional[bool] = None, valid_len=None,
             logits: bool = True, use_kernels: bool = False) -> dict:
     """Forward over tokens (an embedding lookup) or continuous inputs.
     Returns a dict with ``hidden``, ``cache``, ``aux`` (the MoE layers'
@@ -193,22 +289,34 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``logits`` (float32, only when ``logits=True``).
 
     tokens: (B, S) int; embeds: (B, S, d_model); t_cond: scalar or (B,)
-    diffusion time. mode: "train" (full sequence, cache None), "prefill"
-    (full sequence; the cache of every layer comes back: post-RoPE k and v,
-    a ring of ``window`` slots for a sliding-window arch longer than its
-    window, or the ssm conv history and state) or "decode" (one token at
-    position ``cache_index``, an int, against ``cache``; attention caches
-    are written in place). valid_len: optional (B,) per-row true length for
-    bucket-padded batches (padded tail keys are masked out); use_kernels:
-    attention through K2 (which refuses ``valid_len`` and a cache) and the
-    Mamba2 scan through K3."""
+    diffusion time, its embedding added at every position. prefix: (B, P,
+    d_model) image-patch embeddings of a vlm arch, put in front of the
+    token embeddings (not of ``embeds``, and not in decode), so positions
+    and outputs run over P + S. frames: (B, F, d_model) encoder inputs,
+    required by an encdec arch in train and prefill mode (the encoder runs
+    on them; decode reads the cache's cross k and v instead). mode:
+    "train" (full sequence, cache None), "prefill" (full sequence; the
+    cache of every layer comes back: post-RoPE k and v, a ring of
+    ``window`` slots for a sliding-window arch longer than its window, or
+    the ssm conv history and state; encdec adds the cross k and v) or
+    "decode" (one token at position ``cache_index``, an int that counts a
+    vlm prefix, against ``cache``; attention caches are written in place).
+    valid_len: optional (B,) per-row true length for bucket-padded batches
+    (padded tail keys are masked out); use_kernels: self-attention through
+    K2 (which refuses ``valid_len`` and a cache) and the Mamba2 scan
+    through K3."""
     _check_arch(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     dtype = _dtype(cfg)
     if causal is None:
         causal = cfg.objective != "diffusion"
-    h = embeds.to(dtype) if embeds is not None else params["embed"][tokens].to(dtype)
+    if embeds is not None:
+        h = embeds.to(dtype)
+    else:
+        h = params["embed"][tokens].to(dtype)
+        if cfg.arch_type == "vlm" and mode != "decode" and prefix is not None:
+            h = torch.cat([prefix.to(dtype), h], dim=1)
     b, s, _ = h.shape
     if mode == "decode":
         if cache is None or s != 1:
@@ -222,37 +330,44 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             t_cond, cfg.time_emb_dim).to(dtype))
         h = h + te[:, None, :]     # (B or 1, 1, d_model) broadcasts over rows
 
+    enc_out = None
+    if cfg.arch_type == "encdec":
+        if mode == "decode":
+            if "cross" not in cache:
+                raise ValueError(f"{cfg.name} is an encoder-decoder: decode needs "
+                                 "the cache's cross k and v (from prefill or "
+                                 "init_cache(enc_out=, params=))")
+        elif frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward in {mode} "
+                             "mode needs frames= (B, F, d_model), the encoder's inputs")
+        else:
+            enc_out = _run_encoder(params, cfg, frames)
+
     collect_kv = mode == "prefill"
     new_blocks = [] if (cache is not None or collect_kv) else None
+    new_cross = [] if (collect_kv and enc_out is not None) else None
     aux: dict[str, Any] = {}
     for i, bp in enumerate(params["blocks"]):
-        mixer, mlpk = _layer_kind(cfg, i)
         c = cache["blocks"][i] if cache is not None else None
-        hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
-        if mixer == "ssm":
-            out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=c,
-                                    use_kernels=use_kernels)
-        else:
-            out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
-                                  cache=c, cache_index=cache_index,
-                                  return_kv=collect_kv, valid_len=valid_len,
-                                  use_kernels=use_kernels)
-        h = h + out
-        if mlpk != "none":
-            hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
-            if mlpk == "dense":
-                h = h + L.mlp(bp["mlp"], cfg, hn)
-            else:
-                out, moe_aux = L.moe(bp["moe"], cfg, hn)
-                h = h + out
-                for k, v in moe_aux.items():
-                    aux[k] = aux[k] + v if k in aux else v
+        cross = None
+        if "cross" in bp:
+            cross = cache["cross"][i] if mode == "decode" else _cross_kv(cfg, bp, enc_out)
+            if new_cross is not None:
+                new_cross.append(cross)
+        h, nc = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cache=c,
+                             cache_index=cache_index, cross=cross,
+                             collect_kv=collect_kv, valid_len=valid_len,
+                             use_kernels=use_kernels)
         if new_blocks is not None:
             new_blocks.append(nc if nc is not None else c)
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    out = {"hidden": h, "aux": aux,
-           "cache": None if new_blocks is None else dict(cache or {}, blocks=new_blocks)}
+    new_cache = None
+    if new_blocks is not None:
+        new_cache = dict(cache or {}, blocks=new_blocks)
+        if new_cross is not None:
+            new_cache["cross"] = new_cross
+    out = {"hidden": h, "aux": aux, "cache": new_cache}
     if cfg.objective == "diffusion" and embeds is not None:
         out["eps"] = L.matmul(h, params["eps_head"])
     if logits:

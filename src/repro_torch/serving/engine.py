@@ -43,6 +43,12 @@ are the reference's. ``compile_s`` is the time to build that callable
 (near zero); first-call costs on the card (cuBLAS heuristics, the Triton
 kernel's build) land in the first steps' solve time.
 
+Conditioning.  As in the reference, the engines pass no ``prefix`` or
+``frames``: a vlm config (paligemma) serves as a text-only decoder, and an
+encdec config (whisper), whose forward needs the encoder's frames, is
+refused by both engines (:func:`check_servable`); run it through
+``sample_tokens(frames=)`` or the prefill and decode steps.
+
 Device.  The engine runs where its parameters lie: ``device=None`` means
 CUDA, and raises without one. Every ``ab``-method plan is routed through
 the fused AB-step kernel (:mod:`repro_torch.kernels.deis_step`). All
@@ -140,6 +146,17 @@ class StepEvent:
     row_err: Optional[tuple] = None
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for an encdec config: the engines take no encoder ``frames``
+    (the reference's engines pass none either, and its forward then fails)."""
+    if cfg.arch_type == "encdec":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its forward needs the encoder's "
+            "frames, which the serving engines do not take; run it through "
+            "diffusion.lm.sample_tokens(frames=) or training.steps' prefill and "
+            "decode steps with batch['frames']")
+
+
 class ARServeEngine:
     """Greedy autoregressive decoding, one request after another: prefill
     the prompt, then one token per decode step against the cache (the
@@ -150,6 +167,7 @@ class ARServeEngine:
 
     def __init__(self, params, cfg: ModelConfig, *, max_len: int = 512,
                  device=None):
+        check_servable(cfg)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params lie on {params['embed'].device}, the "
@@ -289,6 +307,7 @@ class DiffusionServeEngine:
         there)."""
         if cfg.objective != "diffusion":
             raise ValueError("DiffusionServeEngine serves diffusion configs")
+        check_servable(cfg)
         # repro: allow[RL003] immutable engine config; the ownership table predates the port
         self.device = resolve_device(device)
         if params["embed"].device != self.device:

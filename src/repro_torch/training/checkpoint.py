@@ -5,7 +5,8 @@ holding ``arrays.npz`` (``a0``, ``a1``, ...) and ``manifest.json``
 atomically. Leaves are keyed by the reference's path strings, e.g.
 ``['blocks']/['slot0']/['attn']/['wq']``, each slot's layers stacked on a
 leading block axis (layer ``i`` of the port is slot ``i % bs`` of block
-``i // bs``; ``convert.layers_per_block`` reads ``bs`` off the layers), so
+``i // bs``; ``convert.layers_per_block`` reads ``bs`` off the layers; an
+encdec arch's ``['encoder']/['slot0']/...`` likewise, one slot a block), so
 either package reads a checkpoint the other wrote.
 
 bfloat16 leaves are stored as numpy stores ``ml_dtypes.bfloat16`` arrays:
@@ -24,7 +25,7 @@ import tempfile
 import numpy as np
 import torch
 
-from ..models.convert import layers_per_block, params_to_numpy
+from ..models.convert import LAYER_LISTS, layers_per_block, params_to_numpy
 
 
 def _flatten(tree, prefix=()):
@@ -79,19 +80,20 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def _rebuild_layers(layers, prefix, load):
     """Layer ``i`` of a per-layer list reads slice ``i // bs`` of the
-    stacked ``['blocks']/['slot<i % bs>']/...`` entries."""
+    stacked ``<prefix>/['slot<i % bs>']/...`` entries."""
     bs = layers_per_block(layers)
-    return [_rebuild(lay, prefix + ("['blocks']", f"['slot{i % bs}']"), load, i // bs)
+    return [_rebuild(lay, prefix + (f"['slot{i % bs}']",), load, i // bs)
             for i, lay in enumerate(layers)]
 
 
 def _rebuild(node, prefix, load, block=None):
     """``node``'s structure with each leaf replaced by ``load(path, leaf,
-    block)``; the leaves of a per-layer list under ``"blocks"`` read their
-    block's slice of their slot's stacked entries."""
+    block)``; the leaves of a per-layer list under ``"blocks"`` or
+    ``"encoder"`` read their block's slice of their slot's stacked
+    entries."""
     if isinstance(node, dict):
-        return {k: _rebuild_layers(v, prefix, load)
-                if k == "blocks" and isinstance(v, list) and block is None
+        return {k: _rebuild_layers(v, prefix + (f"[{k!r}]",), load)
+                if k in LAYER_LISTS and isinstance(v, list) and block is None
                 else _rebuild(v, prefix + (f"[{k!r}]",), load, block)
                 for k, v in node.items()}
     if isinstance(node, (list, tuple)):

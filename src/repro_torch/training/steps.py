@@ -13,17 +13,22 @@ from ..models import transformer as T
 
 def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch) -> (last-position logits (B, vocab),
-    cache)`` over ``batch["tokens"]`` (B, S), causal."""
+    cache)`` over ``batch["tokens"]`` (B, S), causal, with
+    ``batch["prefix"]`` (vlm) and ``batch["frames"]`` (encdec) passed on
+    where present."""
     def prefill_step(params, batch):
+        kw = {k: batch[k] for k in ("prefix", "frames") if k in batch}
         out = T.forward(params, cfg, tokens=batch["tokens"], mode="prefill",
-                        causal=True)
+                        causal=True, **kw)
         return out["logits"][:, -1], out["cache"]
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, cache, token (B, 1), cache_index: int) ->
-    (logits (B, vocab), cache)``; attention caches are written in place."""
+    (logits (B, vocab), cache)``; attention caches are written in place.
+    ``cache_index`` counts a vlm prefix; an encdec cache carries the cross
+    k and v from prefill."""
     def decode_step(params, cache, token, cache_index):
         out = T.forward(params, cfg, tokens=token, mode="decode", causal=True,
                         cache=cache, cache_index=cache_index)

@@ -92,6 +92,9 @@ def _launched_once(fn, routes, dtype, before, before_routes):
     (2, 200, 200, 8, 1, 256, True, 64),    # causal with a window at D 256
     (4, 256, 256, 8, 1, 256, False, 0),    # gemma-2b's full width
     (4, 256, 256, 32, 8, 128, False, 4096),  # mixtral-8x7b's: GQA 32/8, D 128, window
+    (4, 256, 256, 6, 6, 64, False, 0),     # whisper-tiny's decoder: D 64
+    (4, 512, 512, 8, 1, 256, False, 0),    # paligemma-3b's prefix and text: S 512
+    (4, 256, 256, 32, 2, 128, False, 0),   # glm4-9b's: GQA 32/2
 ])
 def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
     g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)

@@ -160,9 +160,16 @@ def test_init_params_structure_matches_reference(arch):
 
 
 def test_unported_archs_raise():
-    cfg = get_config("gemma_2b").reduced().with_(arch_type="encdec")
-    with pytest.raises(NotImplementedError, match="encdec and vlm"):
+    """Every arch_type of the reference is ported; an unknown one raises in
+    init, cache and forward rather than run as dense."""
+    cfg = get_config("gemma_2b").reduced().with_(arch_type="retnet")
+    with pytest.raises(ValueError, match="unknown arch_type 'retnet'"):
         PT.init_params(cfg, 0, "cpu")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        PT.init_cache(cfg, 1, 8, device="cpu")
+    pp = PT.init_params(get_config("gemma_2b").reduced(), 0, "cpu")
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        PT.forward(pp, cfg, tokens=torch.zeros(1, 4, dtype=torch.long))
 
 
 @pytest.fixture(scope="module")

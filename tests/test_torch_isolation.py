@@ -40,7 +40,11 @@ def test_port_has_the_slice_modules():
                 "models/ssm.py", "diffusion/lm.py", "obs/metrics.py",
                 "obs/trace.py", "obs/export.py", "serving/engine.py",
                 "serving/driver.py", "configs/h2o_danube_3_4b.py",
-                "training/steps.py", "training/checkpoint.py", "launch/serve.py"):
+                "training/steps.py", "training/checkpoint.py", "launch/serve.py",
+                "configs/mixtral_8x7b.py", "configs/grok_1_314b.py",
+                "configs/jamba_1p5_large.py", "configs/whisper_tiny.py",
+                "configs/paligemma_3b.py", "configs/glm4_9b.py",
+                "configs/granite_3_8b.py", "configs/cifar10_scorenet.py"):
         assert (pkg / rel).is_file(), rel
 
 
