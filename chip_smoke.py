@@ -117,14 +117,43 @@ Phases (any failure raises and the script exits non-zero):
    40-token prompt into the 16-slot ring), jamba-1.5-large (a cache of ssm
    and attention layers), whisper-tiny (a cross cache) and paligemma-3b (a
    prefix) at 1e-3.
+   Then one train step of each arch type (dense, ssm, moe, hybrid,
+   encdec with frames, vlm with a prefix; diffusion, and ar on gemma) at
+   the reduced float32 config from the same params, batch and t / eps:
+   the loss, every grad and the AdamW update against the CPU; and CLD's
+   matrix tAB-DEIS and its RK4 reference in float64 against the CPU.
    Meanwhile ``python -m repro_torch.launch.serve --arch gemma_2b
-   --transport driver --requests 6 --seq-len 128`` runs as a subprocess at
-   full width; it must exit 0 with its ``served 6 requests`` line.
+   --transport driver --requests 6 --seq-len 128`` and ``python -m
+   repro_torch.launch.train --arch gemma_2b --steps 3 --batch 4 --seq 256``
+   run as subprocesses at full width; each must exit 0 (``served 6
+   requests``; three finite losses and the summary line).
+14. Training (after gemma's AR phase, on its weights, which it then
+   changes): 5 train steps of the diffusion objective, then 3 of the ar
+   objective, each from a fresh AdamW state, at batch 4, seq 256 of the
+   Markov corpus on full-width gemma-2b (2.5 B parameters in bf16, float32
+   moments, no remat), on the plain route as in the reference (no kernel
+   launch, asserted): finite losses and grad norms (asserted), ms per step
+   (median, synchronised), tokens/s, peak memory, and from torch.profiler
+   the device time by part (forward, backward, optimizer) and the idle
+   share. Then cifar10-scorenet at its published widths (vocab 256),
+   30 steps at batch 16, seq 32: the loss must fall; its ``(params,
+   opt_state)`` checkpoint round-trips bitwise.
+15. The paper's headline (examples/quickstart on this device): an MLP score
+   net trained 1500 steps on the 8-mode GMM, 1024 samples with ddim, tab1,
+   tab2, tab3, rho_heun and ipndm3 at NFE 5/10/20/50 against rho_rk4 on
+   400 log_rho steps (the error table printed); tAB3@10 < DDIM@10
+   asserted; every ab plan fused, so K1 runs at x (1, 1024, 2), its
+   launches asserted and held against its plain version there; the GMM
+   likelihood at 8/16/32 kutta3 steps (error under 0.02 bits/dim at 32,
+   asserted) and one ``AdaptiveRK23`` solve (NFE, accepted, rejected).
 
 The kernel JSON has one row per hand-written kernel: K1, and both kernels
 of K2 and of K3, each with its launches on its paths (K1 on the served
-paths of gemma and mixtral, the tensor-core kernels on the bf16 one-shot
-paths, the CUDA-core kernels on the float32 one-shot paths of phase 13).
+paths of gemma and mixtral and the paper path's fused solves, the
+tensor-core kernels on the bf16 one-shot paths, the CUDA-core kernels on
+the float32 one-shot paths of phase 13). The training path launches none
+(the reference trains with ``use_pallas=False``; no kernel has a
+backward).
 
 The line before the last is the kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Exits 2 without a CUDA device.
@@ -1586,6 +1615,386 @@ def phase_moe_parts(device, cfg, params, reduced, batch=4):
     return ms
 
 
+TRAIN_LR = 3e-4
+GRAD_TOL = 1e-3     # card vs cpu grads: |diff| <= GRAD_TOL x the leaf's max |grad|
+UPDATE_TOL = dict(rtol=1e-5, atol=1e-7)   # one AdamW update from the same grads
+NLL_TOL = 0.02      # bits/dim at 32 kutta3 steps (tests/test_likelihood.py's bound)
+
+
+def _train_parts_us(step_fn, n):
+    """Device microseconds per call of ``step_fn`` (one train step) by part,
+    from torch.profiler: kernels launched inside ``AdamW.update`` (in a
+    range "optimizer" for the measurement) are the optimizer's, kernels of
+    ops that autograd's engine runs (``autograd::engine::evaluate_function``)
+    the backward's, the rest the forward's. Returns ({part: us}, busy us)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.optimizer import AdamW
+    with _layer_ranges({"update": "optimizer"}, AdamW):
+        step_fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step_fn()
+            torch.cuda.synchronize()
+    parts = dict.fromkeys(("forward", "backward", "optimizer"), 0.0)
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        part, up = "forward", ev
+        while up is not None:
+            if up.name == "optimizer":
+                part = "optimizer"
+                break
+            if up.name.startswith("autograd::engine::evaluate_function"):
+                part = "backward"
+                break
+            up = up.cpu_parent
+        parts[part] += sum(k.duration for k in ev.kernels) / n
+    busy = sum(e.self_device_time_total / n for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "optimizer")
+    return parts, busy
+
+
+def _train_run(device, cfg, params, batch_n, seq, steps, opt, tag, gen_seed=1):
+    """``steps`` train steps of ``make_train_step(cfg, opt)`` from a fresh
+    optimizer state on the Markov corpus, each step timed with a device
+    sync; then one more step under torch.profiler (device time by part).
+    No kernel may launch (the train step runs the plain route, as the
+    reference's). Returns the losses and the timings."""
+    import statistics
+    from repro_torch.data.pipeline import MarkovTextSource, make_batch
+    from repro_torch.training.steps import make_train_step
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    src = MarkovTextSource(cfg.vocab_size, 0)
+    gen = torch.Generator(device=device).manual_seed(gen_seed)
+    losses, gnorms, times = [], [], []
+    _reset_counts()
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in make_batch(cfg, src, i, batch_n, seq).items()}
+        _sync(device)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, gen)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: the train step launched kernels {counts}; it runs "
+                             "the plain route")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"{tag}: losses {losses} or grad norms {gnorms} not finite")
+    med = statistics.median(times[1:] if len(times) > 1 else times) * 1e3
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda"
+            else float("nan"))
+    line = (f"train {tag}: {steps} steps at batch {batch_n}, seq {seq}: median step "
+            f"{med:.3f} ms (first {times[0] * 1e3:.1f} ms), "
+            f"{batch_n * seq / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; losses "
+            + " ".join(f"{v:.4f}" for v in losses) + "; grad norms "
+            + " ".join(f"{v:.3f}" for v in gnorms))
+    out = dict(losses=losses, ms=med, peak=peak, state=state)
+    if device.type == "cuda":
+        parts, busy = _train_parts_us(lambda: step(params, state, batch, gen), 1)
+        line += (f"; device time per step (torch.profiler): busy {busy / 1e3:.3f} of "
+                 f"{med:.3f} ms (idle share {1 - busy / 1e3 / med:.4f}), "
+                 + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in parts.items()))
+        out.update(parts=parts, busy=busy)
+    print(line)
+    return out
+
+
+def phase_train(device, cfg, params, reduced, n_diffusion=5, n_ar=3):
+    """The training path at the model's width (full-width gemma-2b on the
+    card, on the weights of the earlier phases, which it then changes): a
+    few train steps with the diffusion objective, then a few with the ar
+    objective, each from a fresh AdamW state (cosine schedule, lr 3e-4), at
+    batch 4, seq 256 of the Markov corpus. Prints ms per step (median,
+    synchronised), tokens/s, peak memory and the device time by part."""
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    batch_n, seq = (2, 16) if reduced else (4, 256)
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"train {cfg.name}: {n_params / 1e9:.3f} B params ({cfg.dtype}), AdamW float32 "
+          f"moments {2 * 4 * n_params / 1e9:.2f} GB, no remat")
+    runs = {}
+    for objective, steps in (("diffusion", n_diffusion), ("ar", n_ar)):
+        opt = AdamW(cosine_schedule(TRAIN_LR, 1, 10))
+        runs[objective] = _train_run(device, cfg.with_(objective=objective), params,
+                                     batch_n, seq, steps, opt, f"{cfg.name} {objective}")
+        del runs[objective]["state"]
+    return runs
+
+
+def phase_train_scorenet(device):
+    """cifar10-scorenet at its published widths (4 layers, d_model 256,
+    float32; vocab 256 as the reference's training test sets it), 30 steps
+    of the diffusion objective at batch 16, seq 32, constant lr 3e-4 (the
+    reference's ``test_loss_decreases_on_synthetic_corpus``): the loss must
+    fall (the mean of the last 5 below the first 5). Then the
+    ``(params, opt_state)`` checkpoint round trip at this width, bitwise."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    cfg = get_config("cifar10_scorenet").with_(objective="diffusion", vocab_size=256)
+    params = init_params(cfg, 0, device)
+    opt = AdamW(constant_schedule(TRAIN_LR))
+    run = _train_run(device, cfg, params, 16, 32, 30, opt, cfg.name)
+    first, last = np.mean(run["losses"][:5]), np.mean(run["losses"][-5:])
+    if not last < first:
+        raise AssertionError(f"{cfg.name}: the loss did not fall: {run['losses']}")
+    print(f"train {cfg.name}: loss fell from {first:.4f} (mean of steps 0-4) to {last:.4f} "
+          "(steps 25-29)")
+    state = run["state"]
+    with tempfile.TemporaryDirectory() as d:
+        CKPT.save(d, 30, (params, state), {"next_step": 30})
+        like = (init_params(cfg, 1, device), opt.init(params))
+        (p2, s2), meta = CKPT.restore(d, like)
+    same = all(torch.equal(a, b) for a, b in zip(_leaves([params, state.m, state.v]),
+                                                 _leaves([p2, s2.m, s2.v])))
+    if not same or int(s2.step) != 30 or meta != {"next_step": 30}:
+        raise AssertionError(f"{cfg.name}: the (params, opt_state) checkpoint did not "
+                             "round-trip")
+    print(f"checkpoint {cfg.name}: (params, opt_state) saved and restored bitwise (step 30)")
+
+
+def phase_paper(device, reduced):
+    """The paper's headline on this device (the port's examples/quickstart):
+    an MLP score net trained on the 8-mode GMM in 2-D (1500 steps, batch
+    512), then 1024 samples from one prior draw with ddim, tab1, tab2,
+    tab3, rho_heun and ipndm3 at NFE 5/10/20/50 (quadratic steps), each
+    against rho_rk4 on 400 log_rho steps; every ``ab`` plan fused, so K1
+    runs one launch a step at x (1, 1024, 2) (counted from 0 before the
+    table and asserted). Asserts tAB3@10 < DDIM@10, holds K1 at this shape
+    against its plain version (direct calls, r 1..3, and the fused tab3
+    solve against the unfused one), then the GMM likelihood at 8/16/32
+    kutta3 steps (error falls, under 0.02 bits/dim at 32) and one
+    ``AdaptiveRK23`` solve. Returns K1's launches, error and times."""
+    from repro_torch.core import (AdaptiveRK23, VPSDE, get_timesteps, make_plan,
+                                  nll_bits_per_dim, sample)
+    from repro_torch.diffusion.analytic import default_gmm
+    from repro_torch.diffusion.score_net import train_score_net
+    from repro_torch.kernels import deis_step as K
+    from repro_torch.kernels import ref
+    sde = VPSDE()
+    gmm = default_gmm(sde, d=2)
+    steps = 300 if reduced else 1500
+    t0 = time.perf_counter()
+    model = train_score_net(sde, gmm.sample_data, 2, steps=steps, log_every=steps // 5,
+                            device=device)
+    _sync(device)
+    print(f"paper: score net trained on the 8-mode GMM, {steps} steps of batch 512 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eps = model.eps_fn()
+    gen = torch.Generator(device=device).manual_seed(0)
+    x_T = torch.randn((1024, 2), generator=gen, device=device) * sde.prior_std()
+
+    def plan(name, n, kind="quadratic", fused=True):
+        p = make_plan(name, sde, get_timesteps(sde, n, kind)).to(device)
+        return dataclasses.replace(p, fused=True) if fused and p.method == "ab" else p
+
+    rms = lambda a, b: float(torch.sqrt(torch.mean((a - b) ** 2)))
+    names, nfes = ("ddim", "tab1", "tab2", "tab3", "rho_heun", "ipndm3"), (5, 10, 20, 50)
+    with torch.no_grad():
+        ref_x = sample(plan("rho_rk4", 400, "log_rho"), eps, x_T)
+        want_k1, errs = 0, {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        for name in names:
+            for n in nfes:
+                p = plan(name, n)
+                want_k1 += p.n_steps if p.fused else 0
+                errs[name, n] = rms(sample(p, eps, x_T), ref_x)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        fused_tab3 = sample(plan("tab3", 10), eps, x_T)
+        plain_tab3 = sample(plan("tab3", 10, fused=False), eps, x_T)
+    print(f"paper: error table, RMS against rho_rk4 on 400 log_rho steps, 1024 samples "
+          f"({wall:.2f} s for the table):")
+    print(f"  {'solver':10s}" + "".join(f"  NFE={n:<4d}" for n in nfes))
+    for name in names:
+        print(f"  {name:10s}" + "".join(f"  {errs[name, n]:8.4f}" for n in nfes))
+    if device.type == "cuda" and counts != {"K1": want_k1, "K2": 0, "K3": 0}:
+        raise AssertionError(f"paper: the table launched {counts}, not K1 {want_k1}")
+    if not errs["tab3", 10] < errs["ddim", 10]:
+        raise AssertionError(f"paper: tAB3@10 {errs['tab3', 10]:.4f} did not beat DDIM@10 "
+                             f"{errs['ddim', 10]:.4f}")
+    counted = (f"K1 launches {counts['K1']} (= the fused ab steps {want_k1})"
+               if device.type == "cuda" else "K1 not counted on the cpu")
+    print(f"paper: @10 NFE tAB3 {errs['tab3', 10]:.4f} < DDIM {errs['ddim', 10]:.4f} "
+          f"(the paper's headline) held; {counted} at x (1, 1024, 2)")
+    # K1 at this shape against its plain version
+    max_err = _max_err(fused_tab3, plain_tab3)
+    torch.testing.assert_close(fused_tab3, plain_tab3, rtol=1e-5, atol=1e-5)
+    kgen = torch.Generator(device=device).manual_seed(77)
+    for r in (1, 2, 3):
+        args, kw = _k1_inputs(kgen, device, 1, 1024, 2, r, False, r == 3)
+        out, e = K.fused_ab_step(*args, **kw)
+        want, want_e = ref.fused_ab_step_ref(*args, **kw)
+        torch.testing.assert_close(out, want, rtol=K1_TOL, atol=K1_TOL)
+        max_err = max(max_err, _max_err(out, want))
+        if r == 3:
+            torch.testing.assert_close(e, want_e, rtol=K1_TOL, atol=K1_TOL)
+    args, kw = _k1_inputs(kgen, device, 1, 1024, 2, 3, False, False)
+    nbytes = 5 * 1024 * 2 * 4 + 4 * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms, plain_ms, _ = _kernel_times(device, "K1 at R=1 M=1024 D=2 r=3 (the score net's)",
+                                    "fused_ab_kernel", lambda: K.fused_ab_step(*args, **kw),
+                                    lambda: ref.fused_ab_step_ref(*args, **kw),
+                                    n=200 if device.type == "cuda" else 5)
+    print(f"K1 at (1, 1024, 2), r 1..3, within {K1_TOL}; fused vs unfused tab3@10 solve "
+          f"max abs diff {_max_err(fused_tab3, plain_tab3):.3e} (limit 1e-5); byte bound "
+          f"{bound_ms:.3e} ms ({nbytes} B)")
+    # likelihood and adaptive stepping
+    with torch.no_grad():
+        x0 = gmm.sample_data(gen, 24, dtype=torch.float64)
+        exact = float(-gmm.log_prob(x0).mean() / 2 / np.log(2.0))
+        nll = {}
+        t0 = time.perf_counter()
+        for n in (8, 16, 32):
+            nll[n] = abs(float(nll_bits_per_dim(sde, gmm.eps_fn(), x0, n_steps=n,
+                                                method="kutta3").mean()) - exact)
+        _sync(device)
+        nll_s = time.perf_counter() - t0
+        if not (nll[32] < nll[8] and nll[32] < NLL_TOL):
+            raise AssertionError(f"paper: NLL errors {nll} do not fall below {NLL_TOL}")
+        print(f"paper: GMM NLL, exact {exact:.4f} bits/dim; |error| at 8/16/32 kutta3 steps "
+              + " ".join(f"{nll[n]:.5f}" for n in (8, 16, 32))
+              + f" (limit {NLL_TOL} at 32) in {nll_s:.2f} s")
+        res = AdaptiveRK23(sde).solve(eps, x_T)
+        if not torch.isfinite(res.x0).all():
+            raise AssertionError("paper: AdaptiveRK23 gave a non-finite x0")
+        print(f"paper: AdaptiveRK23 (rtol = atol = 1e-2): NFE {res.nfe}, accepted "
+              f"{res.n_accepted}, rejected {res.n_rejected}; RMS against rho_rk4 "
+              f"{rms(res.x0, ref_x):.4f} (tAB3 at 10 NFE {errs['tab3', 10]:.4f})")
+    return dict(launches=counts["K1"], max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms)
+
+
+def _train_step_card_vs_cpu(device):
+    """One train step of each arch type (dense gemma, ssm mamba2, moe
+    mixtral, hybrid jamba, encdec whisper with frames, vlm paligemma with a
+    prefix; the diffusion objective, and the ar objective on gemma) at the
+    reduced float32 config, from the same params, batch and t / eps on the
+    card and on the CPU: the loss (rtol 1e-5), every grad (within GRAD_TOL
+    of the leaf's max |grad|), and the AdamW update of the card's grads
+    on the card against the same update on the CPU (UPDATE_TOL); then one
+    ``train_step`` on the card, finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTextSource, make_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.steps import make_loss_fn, make_train_step
+    cases = [(a, "diffusion") for a in ("gemma_2b", "mamba2_2p7b", "mixtral_8x7b",
+                                        "jamba_1p5_large", "whisper_tiny", "paligemma_3b")]
+    for arch, objective in cases + [("gemma_2b", "ar")]:
+        cfg = get_config(arch).reduced().with_(objective=objective)
+        p_cpu = init_params(cfg, 6, "cpu")
+        p_dev = _to(p_cpu, device)
+        b_cpu = {k: torch.from_numpy(v) for k, v in
+                 make_batch(cfg, MarkovTextSource(cfg.vocab_size, 0), 0, 2, 16).items()}
+        b_dev = {k: v.to(device) for k, v in b_cpu.items()}
+        g = torch.Generator().manual_seed(8)
+        draws = {} if objective == "ar" else {
+            "t": torch.rand((2,), generator=g) * 0.999 + 1e-3,
+            "eps": torch.randn((2, 16, cfg.d_model), generator=g)}
+        loss_fn = make_loss_fn(cfg)
+        (l_cpu, _), g_cpu = O.value_and_grad(loss_fn, p_cpu, b_cpu, has_aux=True, **draws)
+        (l_dev, _), g_dev = O.value_and_grad(loss_fn, p_dev, b_dev, has_aux=True,
+                                             **{k: v.to(device) for k, v in draws.items()})
+        np.testing.assert_allclose(float(l_dev), float(l_cpu), rtol=1e-5)
+        worst = 0.0
+        for a, b in zip(O.tree_leaves(g_dev), O.tree_leaves(g_cpu)):
+            scale = max(b.abs().max().item(), 1e-30)
+            worst = max(worst, (a.cpu() - b).abs().max().item() / scale)
+        if worst > GRAD_TOL:
+            raise AssertionError(f"{arch} {objective}: card grads differ by {worst:.3e} of "
+                                 f"the leaf's max |grad|")
+        opt = O.AdamW(O.cosine_schedule(1e-3, 1, 10))
+        u_cpu = O.tree_map(torch.clone, p_cpu)
+        u_dev = O.tree_map(torch.clone, p_dev)
+        opt.update(O.tree_map(lambda t: t.cpu(), g_dev), opt.init(u_cpu), u_cpu)
+        opt.update(g_dev, opt.init(u_dev), u_dev)
+        upd = 0.0
+        for a, b in zip(O.tree_leaves(u_dev), O.tree_leaves(u_cpu)):
+            torch.testing.assert_close(a.cpu(), b, **UPDATE_TOL)
+            upd = max(upd, (a.cpu() - b).abs().max().item())
+        _, _, m = make_train_step(cfg, opt)(p_dev, opt.init(p_dev), b_dev,
+                                            **{k: v.to(device) for k, v in draws.items()})
+        if not all(torch.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{arch} {objective}: card train step not finite: {m}")
+        cond = "".join(f", {k} {tuple(v.shape)}" for k, v in b_cpu.items() if k != "tokens")
+        print(f"card vs cpu (reduced float32 {cfg.name}, one {objective} train step, batch "
+              f"(2, 16){cond}): loss {float(l_dev):.6f} vs {float(l_cpu):.6f}; grads within "
+              f"{worst:.3e} of each leaf's max |grad| (limit {GRAD_TOL}); AdamW update of "
+              f"the same grads max abs diff {upd:.3e}")
+
+
+def _cld_card_vs_cpu(device):
+    """CLD's matrix tAB-DEIS (order 2, 16 steps) and its fine RK4 reference
+    (200 steps) on the exactly-scored Gaussian problem, float64 on the card
+    against the CPU (rtol 1e-10: matrix products in another order)."""
+    from repro_torch.core.matrix_sde import (CLD, CLDGaussianOracle, cld_reference,
+                                             cld_sample)
+    cld = CLD()
+    orc = CLDGaussianOracle(cld, mean=1.0, var=0.25)
+    m_t, s_t = orc._moments(1.0)
+    z_T = torch.from_numpy(m_t + np.random.RandomState(0).randn(128, 2)
+                           @ np.linalg.cholesky(s_t).T)
+    ts = np.linspace(cld.T, cld.t0, 17)
+    out = {}
+    for dev in ("cpu", device):
+        z = z_T.to(dev)
+        out[str(dev)] = (cld_sample(cld, ts, 2, orc.eps_fn(), z).cpu(),
+                         cld_reference(cld, orc.eps_fn(), z, n_steps=200).cpu())
+    (s_cpu, r_cpu), (s_dev, r_dev) = out["cpu"], out[str(device)]
+    for a, b in ((s_dev, s_cpu), (r_dev, r_cpu)):
+        if not torch.isfinite(a).all():
+            raise AssertionError("CLD on the card: not finite")
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+    print(f"card vs cpu (CLD matrix tAB-DEIS order 2, 16 steps, z (128, 2) float64): max abs "
+          f"diff {(s_dev - s_cpu).abs().max().item():.3e}, its RK4 reference (200 steps) "
+          f"{(r_dev - r_cpu).abs().max().item():.3e} (rtol 1e-10); RMS of the 16-step "
+          f"sample against the reference {float(torch.sqrt(((s_cpu - r_cpu) ** 2).mean())):.4f}")
+
+
+def start_train_cli(device, reduced):
+    """``python -m repro_torch.launch.train --arch gemma_2b --steps 3 --batch 4
+    --seq 256`` as a subprocess (full width on the card)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma_2b",
+           "--steps", "3"]
+    cmd += ["--batch", "2", "--seq", "16"] if reduced else ["--batch", "4", "--seq", "256"]
+    if device.type != "cuda":
+        cmd += ["--device", "cpu"]
+    if reduced:
+        cmd += ["--reduced"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    print("cli: " + " ".join(cmd[1:]))
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env), time.perf_counter()
+
+
+def finish_train_cli(proc, t0):
+    """Wait for the train launcher: exit 0, a finite loss on each of its 3
+    step lines, and its summary line."""
+    out, err = proc.communicate(timeout=600)
+    losses = [float(v) for v in re.findall(r"^step +\d+ loss=(\S+)", out, re.M)]
+    done = [ln for ln in out.splitlines() if ln.startswith("trained ")]
+    if proc.returncode != 0 or len(losses) != 3 or not np.isfinite(losses).all() or not done:
+        raise AssertionError(f"the train launcher exited {proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-2000:]}")
+    print(f"cli: train exit 0 after {time.perf_counter() - t0:.1f} s (process start, init "
+          f"and 3 steps, beside the card-vs-cpu phase and the serving cli); losses "
+          f"{losses}; {done[-1]}")
+
+
 def phase_card_vs_cpu(device):
     """The reduced float32 models on the card against the same models on the
     CPU (plain versions): finite x0 of the right shape that agree (gemma's
@@ -1698,6 +2107,8 @@ def phase_card_vs_cpu(device):
         print(f"card vs cpu (reduced float32 {cfg.name}, AR: prefill 40 tokens{ring}, 8 "
               f"decode steps): max abs logit diff {(lg_dev - lg_cpu).abs().max().item():.3e} "
               f"within {CARD_VS_CPU_TOL}; {engine}")
+    _train_step_card_vs_cpu(device)
+    _cld_card_vs_cpu(device)
     return f32_launches
 
 
@@ -1778,6 +2189,8 @@ def main(argv=None) -> int:
     lap("one-shot gemma")
     phase_ar(device, cfg, params, args.reduced)
     lap("ar gemma")
+    phase_train(device, cfg, params, args.reduced)    # trains these weights: last on gemma
+    lap("train gemma")
     del params
     cfg, params = _init_model("mamba2_2p7b", device, args.reduced)
     mamba = phase_one_shot(device, cfg, params, args.reduced)
@@ -1819,18 +2232,25 @@ def main(argv=None) -> int:
         del params, cond
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    cli = start_cli(device, args.reduced)
+    phase_train_scorenet(device)
+    lap("train cifar10-scorenet")
+    paper = phase_paper(device, args.reduced)
+    lap("paper")
+    clis = [start_cli(device, args.reduced), start_train_cli(device, args.reduced)]
     try:
         f32_path = phase_card_vs_cpu(device)
         lap("card vs cpu")
-        finish_cli(*cli)
-        lap("cli (after card vs cpu)")
+        finish_cli(*clis[0])
+        finish_train_cli(*clis[1])
+        lap("clis (after card vs cpu)")
     finally:
-        if cli[0].poll() is None:
-            cli[0].kill()
-            cli[0].wait()
+        for proc, _ in clis:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    # launches: K1 on the served paths (gemma's and mixtral's); the
+    # launches: K1 on the served paths (gemma's and mixtral's) and the paper
+    # path's fused ab solves (the score net, x (1, 1024, 2)); the
     # tensor-core kernels on the bf16 one-shot paths (K2: gemma's, mixtral's,
     # whisper's and paligemma's); the CUDA-core kernels on the float32
     # one-shot paths (the card-vs-cpu phase), each counted from 0 just before
@@ -1838,7 +2258,9 @@ def main(argv=None) -> int:
     # by phase_k2)
     k2_mma = sum(run["routes"]["tensor_cores"]
                  for run in [gemma, mixtral] + list(cond_paths.values()))
-    rows = [("fused_ab_step", "triton", "deis_step.py", "deis_step.py:45", launches, k1),
+    k1 = dict(k1, max_abs_err=max(k1["max_abs_err"], paper["max_abs_err"]))
+    rows = [("fused_ab_step", "triton", "deis_step.py", "deis_step.py:45",
+             launches + paper["launches"], k1),
             ("flash_attention_tensor_cores", "cuda", "csrc/flash_attention.cu",
              "flash_attention.py:41", k2_mma, k2["gemma"]["tensor_cores"]),
             ("flash_attention_cuda_cores", "cuda", "csrc/flash_attention.cu",

@@ -3,8 +3,8 @@
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package). Only the fields and helpers the ported slices read are kept:
 ``ModelConfig`` with its derived dimensions, the hybrid pattern
-(``is_attn_layer``/``is_moe_layer``), the MoE dispatch mode,
-``with_``/``reduced`` and ``get_config``, which loads
+(``is_attn_layer``/``is_moe_layer``), the MoE dispatch mode, the
+cross-entropy mode, ``with_``/``reduced`` and ``get_config``, which loads
 ``repro_torch.configs.<arch>``.
 """
 from __future__ import annotations
@@ -63,6 +63,8 @@ class ModelConfig:
     objective: str = "diffusion"  # diffusion (paper-native) | ar
     time_emb_dim: int = 256
     moe_dispatch: str = "einsum"  # einsum (GShard one-hot) | gather (slot table)
+    ce_mode: str = "gather"       # gather (log_softmax + gather) | onehot
+    #                               (logsumexp - one-hot contraction)
 
     @property
     def resolved_head_dim(self) -> int:

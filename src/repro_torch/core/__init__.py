@@ -1,5 +1,7 @@
-"""DEIS core in PyTorch: host float64 coefficient engine, solver plans and
-the single step executor (the counterpart of ``repro.core``)."""
+"""DEIS core in PyTorch: host float64 coefficient engine, solver plans, the
+single step executor, adaptive stepping and the likelihood (the
+counterpart of ``repro.core``; the deprecated ``make_solver`` alias is not
+ported)."""
 from .sde import SDE, VPSDE, VESDE, SubVPSDE, get_sde
 from .schedules import get_timesteps, SCHEDULES
 from .coeffs import (ab_coefficients, ddim_coefficients_vp,
@@ -10,7 +12,9 @@ from .plan import (SOLVER_NAMES, SolverPlan, cached_make_plan, inert_row,
                    stack_plans, take_rows)
 from .sampler import (Hooks, SamplerState, init_state, join_state_rows,
                       sample, step, take_state_rows)
-from .adaptive import RetirePolicy, error_ratio, step_factor
+from .adaptive import (AdaptiveResult, AdaptiveRK23, RetirePolicy,
+                       error_ratio, step_factor)
+from .likelihood import nll_bits_per_dim
 
 __all__ = [
     "SDE", "VPSDE", "VESDE", "SubVPSDE", "get_sde",
@@ -22,5 +26,7 @@ __all__ = [
     "take_rows",
     "Hooks", "SamplerState", "init_state", "join_state_rows", "sample",
     "step", "take_state_rows",
-    "RetirePolicy", "error_ratio", "step_factor",
+    "AdaptiveResult", "AdaptiveRK23", "RetirePolicy", "error_ratio",
+    "step_factor",
+    "nll_bits_per_dim",
 ]

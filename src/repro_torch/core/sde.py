@@ -6,8 +6,10 @@ All SDEs here are scalar-coefficient linear diffusions
 
 with Gaussian conditionals  p_{0t}(x_t | x_0) = N(mu(t) x_0, sigma(t)^2 I).
 The coefficient engine (``coeffs.py``) only needs mu/sigma/rho, all computed
-once on the host, so this module is numpy only: the same formulas as
-``repro.core.sde`` without its traced-array branch.
+once on the host in float64 numpy. ``mu`` and ``sigma`` also take a torch
+tensor ``t`` and then compute in its dtype on its device (the counterpart of
+``repro.core.sde``'s traced-array branch), for the training losses and the
+analytic oracles, whose times are per-row tensors.
 
     rho(t) = sigma(t)/mu(t)                  (the DEIS time rescaling, Prop. 3).
 """
@@ -18,6 +20,17 @@ import math
 from typing import Callable
 
 import numpy as np
+import torch
+
+
+def _mod(t):
+    """torch for a tensor ``t``, numpy otherwise."""
+    return torch if isinstance(t, torch.Tensor) else np
+
+
+def _as_array(t):
+    """A tensor as it is; anything else as a float64 numpy array."""
+    return t if isinstance(t, torch.Tensor) else np.asarray(t, dtype=np.float64)
 
 
 class SDE:
@@ -94,20 +107,21 @@ class VPSDE(SDE):
     t0: float = 1e-3
 
     def log_alpha_bar(self, t):
-        t = np.asarray(t, dtype=np.float64)
+        t = _as_array(t)
         return -0.5 * t ** 2 * (self.beta_max - self.beta_min) - t * self.beta_min
 
     def alpha_bar(self, t):
-        return np.exp(self.log_alpha_bar(t))
+        return _mod(t).exp(self.log_alpha_bar(t))
 
     def beta(self, t):
         return self.beta_min + t * (self.beta_max - self.beta_min)
 
     def mu(self, t):
-        return np.exp(0.5 * self.log_alpha_bar(t))
+        return _mod(t).exp(0.5 * self.log_alpha_bar(t))
 
     def sigma(self, t):
-        return np.sqrt(-np.expm1(self.log_alpha_bar(t)))
+        mod = _mod(t)
+        return mod.sqrt(-mod.expm1(self.log_alpha_bar(t)))
 
     def f(self, t):
         return -0.5 * self.beta(t)
@@ -140,11 +154,11 @@ class VESDE(SDE):
     t0: float = 1e-5
 
     def mu(self, t):
-        return np.ones_like(np.asarray(t, dtype=np.float64)) * 1.0
+        return _mod(t).ones_like(_as_array(t)) * 1.0
 
     def sigma(self, t):
         log_ratio = math.log(self.sigma_max / self.sigma_min)
-        return self.sigma_min * np.exp(np.asarray(t) * log_ratio)
+        return self.sigma_min * _mod(t).exp(_as_array(t) * log_ratio)
 
     def f(self, t):
         return np.zeros_like(np.asarray(t, dtype=np.float64))
@@ -172,7 +186,7 @@ class SubVPSDE(VPSDE):
     """sub-VP SDE (Song et al. 2020b): the coefficient engine is SDE-generic."""
 
     def sigma(self, t):
-        return -np.expm1(self.log_alpha_bar(t))  # 1 - alpha_bar
+        return -_mod(t).expm1(self.log_alpha_bar(t))  # 1 - alpha_bar
 
     def g2(self, t):
         return self.beta(t) * (-np.expm1(2.0 * self.log_alpha_bar(t)))

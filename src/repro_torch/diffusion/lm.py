@@ -1,9 +1,13 @@
 """Continuous diffusion language modeling: the paper's sampler over a
 transformer eps-network in token-embedding space.
 
-The counterpart of the sampling half of ``repro.diffusion.lm``. Generation
-runs any DEIS solver in embedding space -- each NFE is one full-sequence
-backbone forward -- then rounds to tokens through the tied LM head.
+The counterpart of ``repro.diffusion.lm``. Tokens are embedded into
+R^{d_model} (:func:`token_embeddings`); a forward SDE noises the
+embeddings, and the backbone (bidirectional, time-conditioned) is trained
+as eps_theta with the paper's Eq. 9 loss plus a rounding-anchor
+cross-entropy through the LM head (:func:`diffusion_loss`). Generation runs
+any DEIS solver in embedding space -- each NFE is one full-sequence
+backbone forward -- then rounds to tokens through the LM head.
 
 Random numbers. Each request owns two ``torch.Generator``s derived from its
 seed alone (:func:`request_generators`): one draws its prior, one its solve
@@ -24,6 +28,64 @@ from ..core.plan import SolverPlan
 from ..models import transformer as T
 
 X0_SCALE = 25.0    # x0 = embed * X0_SCALE so data std ~ 0.5
+
+
+def token_embeddings(params, tokens):
+    """x0 of the diffusion: the tokens' embeddings in float32, times
+    ``X0_SCALE``."""
+    return params["embed"][tokens].to(torch.float32) * X0_SCALE
+
+
+def draw_t_eps(sde, tokens, d_model: int, gen, device, t=None, eps=None):
+    """The diffusion loss's draws from ``gen``, each unless given: ``t``
+    (B,) ~ U(t0, T), then ``eps`` (B, S, d_model) ~ N(0, I), float32."""
+    if t is None:
+        t = torch.rand((tokens.shape[0],), generator=gen, device=device,
+                       dtype=torch.float32) * (sde.T - sde.t0) + sde.t0
+    if eps is None:
+        eps = torch.randn((*tokens.shape, d_model), generator=gen, device=device,
+                          dtype=torch.float32)
+    return t, eps
+
+
+def diffusion_loss(params, cfg: ModelConfig, sde, tokens, gen=None, *, prefix=None,
+                   frames=None, ce_weight: float = 0.1, remat: bool = False, t=None,
+                   eps=None):
+    """Paper Eq. 9 (eps matching, uniform weight) + ``ce_weight`` x the
+    rounding-anchor cross-entropy + the MoE aux losses. Returns ``(loss,
+    {"loss", "mse", "ce"})``.
+
+    ``t`` (B,) ~ U(t0, T) and ``eps`` ~ N(0, I) of x0's shape are drawn
+    from the ``torch.Generator`` ``gen`` (t first), on the parameters'
+    device, unless given: ``t=`` and ``eps=`` take draws from elsewhere (the
+    tests hand in the reference's). ``prefix`` (vlm) goes in front of x_t
+    and its positions are sliced off the eps; ``frames`` (encdec) feed the
+    encoder. ``remat``: each layer under ``torch.utils.checkpoint``."""
+    from ..training.steps import cross_entropy   # steps imports this module
+    t, eps = draw_t_eps(sde, tokens, cfg.d_model, gen, params["embed"].device, t, eps)
+    x0 = token_embeddings(params, tokens)
+    mu = sde.mu(t)[:, None, None]
+    sig = sde.sigma(t)[:, None, None]
+    xt = mu * x0 + sig * eps
+
+    vlm = cfg.arch_type == "vlm" and prefix is not None
+    xin = torch.cat([prefix.to(xt.dtype), xt], dim=1) if vlm else xt
+    out = T.forward(params, cfg, embeds=xin, t_cond=t, mode="train", causal=False,
+                    frames=frames, logits=False, remat=remat)
+    eps_pred = out["eps"].to(torch.float32)
+    if vlm:
+        eps_pred = eps_pred[:, prefix.shape[1]:]
+    mse = torch.mean(torch.square(eps_pred - eps))
+
+    # rounding anchor: decode x0_hat back to tokens through the LM head
+    x0_hat = (xt - sig * eps_pred) / torch.clamp(mu, min=1e-4)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x0_hat / X0_SCALE) @ head.to(torch.float32)
+    ce = cross_entropy(logits, tokens, cfg)
+
+    aux = sum(out["aux"].values()) if out["aux"] else 0.0
+    loss = mse + ce_weight * ce + aux
+    return loss, {"loss": loss, "mse": mse, "ce": ce}
 
 
 def make_eps_fn(params, cfg: ModelConfig, *, prefix=None, frames=None,

@@ -38,11 +38,23 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (of the same keys as ``rest``)."""
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (``rest``
+    of the same structure); None stays None."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return None if tree is None else fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples, dict keys in order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -65,11 +77,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
                 raise ValueError(f"{name} hold {sorted(sub)}, {cfg.name} has "
                                  f"{bs} slots a block")
             out[name] = [
-                _map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i // bs], device),
-                     sub[f"slot{i % bs}"])
+                tree_map(lambda a, i=i: tensor_from_numpy(np.asarray(a)[i // bs], device),
+                         sub[f"slot{i % bs}"])
                 for i in range(n)]
         else:
-            out[name] = _map(lambda a: tensor_from_numpy(a, device), sub)
+            out[name] = tree_map(lambda a: tensor_from_numpy(a, device), sub)
     return out
 
 
@@ -102,21 +114,42 @@ def _restack(layers: list) -> dict:
     """A per-layer list as the reference's ``{"slot<j>": stacked subtree}``
     (:func:`layers_per_block` slots, each leaf stacked over the blocks)."""
     bs = layers_per_block(layers)
-    return {f"slot{j}": _map(lambda *ls: np.stack([tensor_to_numpy(t) for t in ls]),
-                             *layers[j::bs])
+    return {f"slot{j}": tree_map(lambda *ls: np.stack([tensor_to_numpy(t) for t in ls]),
+                                 *layers[j::bs])
             for j in range(bs)}
 
 
 def params_to_numpy(tree):
     """The inverse of :func:`params_from_numpy`: the port's params (or a
-    cache, or a tuple holding them) as the reference's tree of numpy arrays,
-    each per-layer list under ``"blocks"`` or ``"encoder"`` restacked into
-    its slots."""
+    cache, or a tuple or named tuple holding them, such as ``(params,
+    opt_state)``) as the reference's tree of numpy arrays, each per-layer
+    list under ``"blocks"`` or ``"encoder"`` restacked into its slots."""
     if isinstance(tree, dict):
         return {k: _restack(v) if k in LAYER_LISTS and isinstance(v, list)
                 else params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(params_to_numpy(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_to_numpy(v) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tensor_to_numpy(tree)
     return tree if tree is None else np.asarray(tree)
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, device=None):
+    """The reference's optimizer state (``OptState(step, m, v)`` with numpy
+    leaves, e.g. ``jax.tree.map(np.asarray, opt_state)``) as the port's
+    :class:`~repro_torch.training.optimizer.OptState` on ``device``: ``m``
+    and ``v`` split into per-layer lists as :func:`params_from_numpy` splits
+    the params."""
+    from ..training.optimizer import OptState   # the optimizer imports this module
+    step, m, v = state
+    return OptState(tensor_from_numpy(np.asarray(step, np.int32), resolve_device(device)),
+                    params_from_numpy(m, cfg, device), params_from_numpy(v, cfg, device))
+
+
+def opt_state_to_numpy(state):
+    """The inverse of :func:`opt_state_from_numpy`: ``(step, m, v)`` with
+    ``m`` and ``v`` restacked in the reference's layout."""
+    step, m, v = state
+    return tensor_to_numpy(step), params_to_numpy(m), params_to_numpy(v)

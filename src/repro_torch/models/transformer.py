@@ -41,6 +41,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -262,9 +263,23 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
         else:
             out, moe_aux = L.moe(bp["moe"], cfg, hn)
             h = h + out
-            for k, v in moe_aux.items():
-                aux[k] = aux[k] + v if k in aux else v
+            _add_aux(aux, moe_aux)
     return h, nc
+
+
+def _add_aux(aux: dict, new: dict) -> None:
+    for k, v in new.items():
+        aux[k] = aux[k] + v if k in aux else v
+
+
+def _remat_layer(cfg, i, bp, h, positions, cross, causal, valid_len, use_kernels):
+    """Layer ``i`` in train mode as a pure function of its inputs, ``(h, its
+    own aux losses)``: what ``forward(remat=True)`` checkpoints (the
+    backward pass re-runs it, so it must not add into the caller's aux)."""
+    aux: dict = {}
+    h, _ = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cross=cross,
+                        valid_len=valid_len, use_kernels=use_kernels)
+    return h, aux
 
 
 def _run_encoder(params, cfg: ModelConfig, frames):
@@ -281,7 +296,7 @@ def _run_encoder(params, cfg: ModelConfig, frames):
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             frames=None, mode: str = "train", cache=None, cache_index=None,
             t_cond=None, causal: Optional[bool] = None, valid_len=None,
-            logits: bool = True, use_kernels: bool = False) -> dict:
+            logits: bool = True, use_kernels: bool = False, remat: bool = False) -> dict:
     """Forward over tokens (an embedding lookup) or continuous inputs.
     Returns a dict with ``hidden``, ``cache``, ``aux`` (the MoE layers'
     ``moe_lb`` and ``moe_z`` losses, each summed over the layers; empty
@@ -304,7 +319,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     valid_len: optional (B,) per-row true length for bucket-padded batches
     (padded tail keys are masked out); use_kernels: self-attention through
     K2 (which refuses ``valid_len`` and a cache) and the Mamba2 scan
-    through K3."""
+    through K3. remat: train mode only; each decoder layer runs under
+    ``torch.utils.checkpoint`` (its activations are recomputed in the
+    backward pass; the reference's ``jax.checkpoint`` of a scan block)."""
     _check_arch(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
@@ -344,6 +361,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             enc_out = _run_encoder(params, cfg, frames)
 
     collect_kv = mode == "prefill"
+    if remat and mode != "train":
+        raise ValueError("remat recomputes a layer in the backward pass; it is for "
+                         "train mode only")
     new_blocks = [] if (cache is not None or collect_kv) else None
     new_cross = [] if (collect_kv and enc_out is not None) else None
     aux: dict[str, Any] = {}
@@ -354,10 +374,16 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             cross = cache["cross"][i] if mode == "decode" else _cross_kv(cfg, bp, enc_out)
             if new_cross is not None:
                 new_cross.append(cross)
-        h, nc = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cache=c,
-                             cache_index=cache_index, cross=cross,
-                             collect_kv=collect_kv, valid_len=valid_len,
-                             use_kernels=use_kernels)
+        if remat:
+            h, layer_aux = checkpoint(_remat_layer, cfg, i, bp, h, positions, cross,
+                                      causal, valid_len, use_kernels, use_reentrant=False)
+            _add_aux(aux, layer_aux)
+            nc = None
+        else:
+            h, nc = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cache=c,
+                                 cache_index=cache_index, cross=cross,
+                                 collect_kv=collect_kv, valid_len=valid_len,
+                                 use_kernels=use_kernels)
         if new_blocks is not None:
             new_blocks.append(nc if nc is not None else c)
 

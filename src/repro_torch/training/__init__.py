@@ -1,2 +1,2 @@
-"""Training-side pieces the serving launcher needs: the prefill and decode
-steps and checkpoints (the train step waits for the training slice)."""
+"""Training: AdamW and its schedules, the train, prefill and decode steps,
+and checkpoints of ``params`` or ``(params, opt_state)``."""

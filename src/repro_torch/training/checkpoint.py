@@ -28,12 +28,23 @@ import torch
 from ..models.convert import LAYER_LISTS, layers_per_block, params_to_numpy
 
 
+def _keys(node):
+    """A named tuple's path keys (``.field``, as JAX names a named tuple's
+    fields), else None."""
+    return [f".{f}" for f in node._fields] if isinstance(node, tuple) and \
+        hasattr(node, "_fields") else None
+
+
 def _flatten(tree, prefix=()):
-    """(path, leaf) pairs of nested dicts, lists and tuples in the
-    reference's order: dict keys sorted, sequences by index."""
+    """(path, leaf) pairs of nested dicts, named tuples, lists and tuples in
+    the reference's order: dict keys sorted, named tuples by field,
+    sequences by index."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], prefix + (f"[{k!r}]",))
+    elif _keys(tree) is not None:
+        for key, v in zip(_keys(tree), tree):
+            yield from _flatten(v, prefix + (key,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _flatten(v, prefix + (f"[{i}]",))
@@ -42,9 +53,12 @@ def _flatten(tree, prefix=()):
 
 
 def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None) -> str:
-    """Atomically write ``tree`` (the port's params, or any nesting of
-    dicts, lists and tuples of tensors or arrays) as step ``step``; returns
-    the step directory."""
+    """Atomically write ``tree`` (the port's params, ``(params, opt_state)``,
+    or any nesting of dicts, named tuples, lists and tuples of tensors or
+    arrays) as step ``step``; returns the step directory. An
+    :class:`~repro_torch.training.optimizer.OptState`'s fields go under
+    ``.step``, ``.m`` and ``.v``, its moments restacked like the params
+    (paths ``[1]/.m/['blocks']/['slot0']/...``)."""
     pairs = list(_flatten(params_to_numpy(tree)))
     paths = [p for p, _ in pairs]
     arrs = [a for _, a in pairs]
@@ -96,6 +110,9 @@ def _rebuild(node, prefix, load, block=None):
                 if k in LAYER_LISTS and isinstance(v, list) and block is None
                 else _rebuild(v, prefix + (f"[{k!r}]",), load, block)
                 for k, v in node.items()}
+    if _keys(node) is not None:
+        return type(node)(*(_rebuild(v, prefix + (key,), load, block)
+                            for key, v in zip(_keys(node), node)))
     if isinstance(node, (list, tuple)):
         return type(node)(_rebuild(v, prefix + (f"[{i}]",), load, block)
                           for i, v in enumerate(node))
@@ -103,11 +120,12 @@ def _rebuild(node, prefix, load, block=None):
 
 
 def restore(ckpt_dir: str, like, step: int | None = None):
-    """Restore into the structure of ``like`` (the port's params, tensors):
-    each leaf takes ``like``'s dtype and device. Returns ``(tree,
-    metadata)``; raises ``KeyError`` for a path the checkpoint lacks (as
-    the reference does, e.g. for the ``(params, opt_state)`` tuple the
-    reference's train launcher saves)."""
+    """Restore into the structure of ``like`` (the port's params, or the
+    ``(params, opt_state)`` pair a training run saves; tensors): each leaf
+    takes ``like``'s dtype and device. Returns ``(tree, metadata)``;
+    raises ``KeyError`` for a path the checkpoint lacks (as the reference
+    does, e.g. when the serving launcher's params-only template meets the
+    ``(params, opt_state)`` pair the train launcher saves)."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")

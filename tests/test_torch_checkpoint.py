@@ -147,3 +147,47 @@ def test_tuple_checkpoint_raises_in_both_packages(tmp_path):
     got, _ = PC.restore(str(tmp_path), (pp, {"mu": init_params(pcfg, 1, "cpu")}))
     _assert_bitwise(got[0], pp)
     assert all(not t.any() for t in _leaves(got[1]))
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "jamba_1p5_large", "whisper_tiny"])
+def test_train_state_checkpoints_cross_both_ways(tmp_path, arch):
+    """``(params, opt_state)``, as the train launchers save it: the port reads
+    the reference's (paths ``[1]/.step``, ``[1]/.m/['blocks']/['slot0']/...``),
+    and the reference's ``restore`` reads the port's, bitwise at float32,
+    with the same manifest."""
+    from repro.training.optimizer import AdamW as RAdamW, constant_schedule
+    from repro_torch.models.convert import opt_state_from_numpy, opt_state_to_numpy
+    from repro_torch.training.optimizer import AdamW as PAdamW
+    rcfg, pcfg, rp = _models(arch, "float32")
+    rng = np.random.RandomState(0)
+    noisy = lambda tree: jax.tree.map(
+        lambda a: rng.randn(*np.shape(a)).astype(np.float32), _np_tree(tree))
+    ropt = RAdamW(constant_schedule(1e-3)).init(rp)
+    ropt = ropt._replace(step=jax.numpy.int32(7), m=noisy(ropt.m), v=noisy(ropt.v))
+    ref_dir = RC.save(str(tmp_path / "ref"), 7, (rp, ropt), {"next_step": 7})
+    paths = _manifest(ref_dir)["paths"]
+    assert "[1]/.step" in paths and any(p.startswith("[1]/.m/['blocks']/['slot0']/")
+                                        for p in paths)
+
+    pp = params_from_numpy(_np_tree(rp), pcfg, "cpu")
+    popt = opt_state_from_numpy(_np_tree(ropt), pcfg, "cpu")
+    like = (init_params(pcfg, 1, "cpu"), PAdamW(lambda s: 0.0).init(init_params(pcfg, 1, "cpu")))
+    (got_p, got_o), meta = PC.restore(str(tmp_path / "ref"), like)
+    assert meta == {"next_step": 7}
+    _assert_bitwise(got_p, pp)
+    assert got_o.step.dtype == torch.int32 and int(got_o.step) == 7
+    _assert_bitwise(got_o.m, popt.m)
+    _assert_bitwise(got_o.v, popt.v)
+
+    port_dir = PC.save(str(tmp_path / "port"), 7, (pp, popt), {"next_step": 7})
+    assert _manifest(port_dir) == _manifest(ref_dir)
+    (back_p, back_o), _ = RC.restore(str(tmp_path / "port"), (rp, ropt))
+    for a, b in zip(jax.tree.leaves((back_p, back_o)), jax.tree.leaves((rp, ropt))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    step, m, v = opt_state_to_numpy(popt)
+    assert step == 7 and jax.tree.structure(m) == jax.tree.structure(_np_tree(ropt.m))
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)

@@ -25,7 +25,7 @@ from repro_torch.models.convert import params_from_numpy
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["glm4_9b", "granite_3_8b", "cifar10_scorenet"]
-SKIP = {"ce_mode", "act_shard_axes"}     # mesh and loss levers, not ported
+SKIP = {"act_shard_axes"}     # a mesh lever, not ported
 
 
 def _models(arch, objective):

@@ -11,7 +11,14 @@ the JAX kernel tests' own tolerances (K2 2e-5 float32 and 2e-2 bf16, K3
 2e-4 float32 and 5e-2 bf16: other summation orders, a bf16 rounding of the
 output that a last-bit difference can flip). bf16 operands run K2's and
 K3's tensor-core kernels, float32 operands their CUDA-core kernels; each
-case checks that its route's launch count, and only that, went up."""
+case checks that its route's launch count, and only that, went up.
+
+The training slice's card tests: a float32 train step against the CPU
+(loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
+update of the same grads rtol 1e-5, atol 1e-7), AdamW on CUDA tensors
+against the CPU (rtol 1e-6, atol 1e-7), and the MLP score net trained on
+the card and sampled by a fused tab3 plan through K1 at x (1, 1024, 2)
+(within 1e-5 of the unfused solve)."""
 import sys
 from pathlib import Path
 
@@ -177,3 +184,94 @@ def test_cuda_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="state"):
         SS.ssd_scan(torch.zeros(1, 8, 2, 16, device=cuda), torch.ones(1, 8, 2, device=cuda),
                     torch.zeros(1, 8, 256, device=cuda), torch.zeros(1, 8, 256, device=cuda))
+
+
+def _leaves(tree):
+    from repro_torch.training.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+def test_cuda_train_step_matches_cpu(cuda):
+    """One diffusion train step of the reduced float32 gemma-2b on the card
+    against the CPU, from the same params, batch and t / eps: the loss at
+    rtol 1e-5, every grad within 1e-3 of its leaf's max |grad| (cuBLAS
+    against the CPU's summation order), the AdamW update of the same grads
+    at rtol 1e-5, atol 1e-7 (elementwise float32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTextSource, make_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.steps import make_loss_fn, make_train_step
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    p_cpu = init_params(cfg, 3, "cpu")
+    p_dev = O.tree_map(lambda t: t.to(cuda), p_cpu)
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_batch(cfg, MarkovTextSource(cfg.vocab_size, 0), 0, 2, 16).items()}
+    g = torch.Generator().manual_seed(0)
+    t, eps = torch.rand((2,), generator=g) * 0.99 + 0.01, torch.randn((2, 16, 256), generator=g)
+    loss_fn = make_loss_fn(cfg)
+    (l_c, _), g_c = O.value_and_grad(loss_fn, p_cpu, batch, t=t, eps=eps, has_aux=True)
+    (l_d, _), g_d = O.value_and_grad(loss_fn, p_dev, {k: v.to(cuda) for k, v in batch.items()},
+                                     t=t.to(cuda), eps=eps.to(cuda), has_aux=True)
+    assert float(l_d) == pytest.approx(float(l_c), rel=1e-5)
+    for a, b in zip(_leaves(g_d), _leaves(g_c)):
+        assert (a.cpu() - b).abs().max() <= 1e-3 * b.abs().max()
+    opt = O.AdamW(O.cosine_schedule(1e-3, 1, 10))
+    opt.update(O.tree_map(lambda x: x.cpu(), g_d), opt.init(p_cpu), p_cpu)
+    opt.update(g_d, opt.init(p_dev), p_dev)
+    for a, b in zip(_leaves(p_dev), _leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
+    _, state, m = make_train_step(cfg, opt)(p_dev, opt.init(p_dev),
+                                            {k: v.to(cuda) for k, v in batch.items()},
+                                            torch.Generator(device=cuda).manual_seed(1))
+    assert all(torch.isfinite(v) for v in m.values()) and int(state.step) == 1
+    assert state.step.device.type == "cuda"
+
+
+def test_cuda_adamw_matches_cpu(cuda):
+    """AdamW, 3 steps with weight decay, on CUDA tensors against the CPU
+    (per-layer lists under "blocks" decayed, a top-level vector not):
+    rtol 1e-6, atol 1e-7."""
+    from repro_torch.training import optimizer as O
+    g = torch.Generator().manual_seed(2)
+    n = lambda *s: torch.randn(s, generator=g)
+    tree = lambda: {"blocks": [{"norm1": n(8), "w": n(8, 4)} for _ in range(2)],
+                    "final_norm": n(8), "embed": n(16, 8)}
+    p_cpu = tree()
+    p_dev = O.tree_map(lambda t: t.to(cuda), p_cpu)
+    opt = O.AdamW(O.cosine_schedule(1e-2, 1, 5), weight_decay=0.5, clip_norm=5.0)
+    s_cpu, s_dev = opt.init(p_cpu), opt.init(p_dev)
+    for _ in range(3):
+        grads = tree()
+        _, s_cpu, m_c = opt.update(grads, s_cpu, p_cpu)
+        _, s_dev, m_d = opt.update(O.tree_map(lambda t: t.to(cuda), grads), s_dev, p_dev)
+        assert float(m_d["grad_norm"]) == pytest.approx(float(m_c["grad_norm"]), rel=1e-6)
+    for a, b in zip(_leaves([p_dev, s_dev.m, s_dev.v]), _leaves([p_cpu, s_cpu.m, s_cpu.v])):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+    assert int(s_dev.step) == 3
+
+
+def test_cuda_score_net_samples_through_k1(cuda):
+    """The MLP score net trained on the card (60 steps on the 8-mode GMM),
+    then a fused tab3 solve of 1024 points in 2-D: K1 launches once a step
+    at x (1, 1024, 2), and the solve agrees with the unfused one (the plain
+    version's arithmetic) within 1e-5."""
+    import dataclasses
+    from repro_torch.core import VPSDE, get_timesteps, make_plan, sample
+    from repro_torch.diffusion.analytic import default_gmm
+    from repro_torch.diffusion.score_net import train_score_net
+    sde = VPSDE()
+    gmm = default_gmm(sde, d=2)
+    model = train_score_net(sde, gmm.sample_data, 2, steps=60, batch=256, device=cuda)
+    eps = model.eps_fn()
+    x_T = torch.randn((1024, 2), generator=torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    plan = make_plan("tab3", sde, get_timesteps(sde, 10, "quadratic")).to(cuda)
+    before = K.fused_ab_step.launches
+    with torch.no_grad():
+        fused = sample(dataclasses.replace(plan, fused=True), eps, x_T)
+        assert K.fused_ab_step.launches == before + plan.n_steps
+        plain = sample(plan, eps, x_T)
+    assert fused.shape == (1024, 2) and torch.isfinite(fused).all()
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-5)

@@ -46,7 +46,7 @@ def _models(arch, **kw):
 @pytest.mark.parametrize("arch", NEW)
 def test_configs_match_reference(arch):
     assert arch in ARCH_IDS
-    skip = {"ce_mode", "act_shard_axes"}     # mesh and loss levers, not ported
+    skip = {"act_shard_axes"}     # a mesh lever, not ported
     for full in (True, False):
         r, p = ref_get_config(arch), get_config(arch)
         if not full:

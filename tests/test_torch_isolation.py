@@ -44,7 +44,10 @@ def test_port_has_the_slice_modules():
                 "configs/mixtral_8x7b.py", "configs/grok_1_314b.py",
                 "configs/jamba_1p5_large.py", "configs/whisper_tiny.py",
                 "configs/paligemma_3b.py", "configs/glm4_9b.py",
-                "configs/granite_3_8b.py", "configs/cifar10_scorenet.py"):
+                "configs/granite_3_8b.py", "configs/cifar10_scorenet.py",
+                "training/optimizer.py", "data/pipeline.py", "launch/train.py",
+                "diffusion/analytic.py", "diffusion/score_net.py",
+                "core/likelihood.py", "core/matrix_sde.py"):
         assert (pkg / rel).is_file(), rel
 
 

@@ -1,8 +1,10 @@
 """The port's executor against the JAX package's, in float64.
 
-Both run the same eps function: the reference's exact Gaussian-data eps
-(``repro.diffusion.analytic.GaussianData``), wrapped for the port into a
-torch callable through numpy. Stochastic names receive the reference's own
+Both run the exact Gaussian-data eps of the same data: the reference's
+``repro.diffusion.analytic.GaussianData`` on the JAX side, the port's own
+``repro_torch.diffusion.analytic.GaussianData`` on the port's (held to
+the reference's at rtol 1e-12 in ``tests/test_torch_paper.py``).
+Stochastic names receive the reference's own
 noise (its per-step key splits) through the port's ``noise=`` seam. The
 only differences left are summation orders, so the final iterates are held
 to rtol = 1e-10 (atol 1e-12)."""
@@ -17,6 +19,7 @@ import torch
 import repro.core as R
 from repro.diffusion.analytic import GaussianData
 import repro_torch.core as P
+from repro_torch.diffusion.analytic import GaussianData as PortGaussianData
 
 TOL = dict(rtol=1e-10, atol=1e-12)
 D = 6
@@ -25,12 +28,8 @@ MEAN, VAR = _rng.randn(D), _rng.uniform(0.5, 1.5, D)
 
 
 def _eps_pair():
-    eps_j = GaussianData(R.VPSDE(), MEAN, VAR).eps_fn()
-
-    def eps_t(x, t):
-        return torch.from_numpy(np.array(eps_j(jnp.asarray(x.numpy()),
-                                               jnp.asarray(t.numpy()))))
-    return eps_j, eps_t
+    return (GaussianData(R.VPSDE(), MEAN, VAR).eps_fn(),
+            PortGaussianData(P.VPSDE(), MEAN, VAR).eps_fn())
 
 
 def _plans(name, n, **kw):
