@@ -52,6 +52,15 @@ Phases (any failure raises and the script exits non-zero):
    K1's launch count against the ``ab`` group steps served, the
    stacked-vs-solo difference of the eps-net on the card (reported, not
    asserted).
+6b. Request-axis serving (after phase 6, on its weights): phase 6's mix
+   through ``DiffusionServeEngine(mesh=make_request_mesh())`` over a
+   one-rank NCCL data group and its gloo control group (``file://`` store
+   under ``build/``): tokens, NFE, early exits and final errors bitwise
+   equal to the unsharded engine's on the card (at one rank the local
+   shapes are the unsharded ones), no new executor on warm replays, K1's
+   launches equal to the ``ab`` group steps; warm ms per tick, sharded
+   against unsharded, in turns (the difference is the control plane's
+   cost); a ``ServeDriver`` over the sharded engine.
 7. One-shot kernel path: ``sample_tokens(..., use_kernels=True)`` with a
    fused tab3 plan of 10 NFE at batch 4, seq 256, on full-width gemma-2b
    (the same weights; attention through K2) and full-width mamba2-2.7b (64
@@ -91,6 +100,11 @@ Phases (any failure raises and the script exits non-zero):
    GEMMs, attention GEMMs, MoE routing and dispatch, K2, other), idle share
    and peak memory; (c) AR decode as phase 9 at capacity_factor 100 (no
    drops: prefill, decode and the full forward route alike).
+10b. Expert parallelism: ``moe_expert_parallel`` on mixtral's layer 0 (8
+   experts, d_model 4096, d_ff 14336, bf16, 2.82 GB) over a one-rank NCCL
+   group against ``layers.moe`` (gather dispatch) at capacity_factor 100,
+   x (4, 256, 4096) from a seed: the output within EP_TOL (2e-2) of
+   max|moe|, the load-balance loss within 1e-3; both timed in turns.
 11. Whisper-tiny at its published widths (4 decoder and 4 encoder layers,
    d_model 384, 6 heads of 64, d_ff 1536, vocab 51865, bf16) over frames
    (4, 1500, 384) drawn from a seed, random weights from seed 0: the
@@ -126,7 +140,13 @@ Phases (any failure raises and the script exits non-zero):
    --transport driver --requests 6 --seq-len 128`` and ``python -m
    repro_torch.launch.train --arch gemma_2b --steps 3 --batch 4 --seq 256``
    run as subprocesses at full width; each must exit 0 (``served 6
-   requests``; three finite losses and the summary line).
+   requests``; three finite losses and the summary line). Beside them,
+   ``torchrun --standalone --nproc_per_node=1 -m repro_torch.launch.serve
+   --arch gemma_2b --data-parallel --requests 6 --seq-len 128`` (sync
+   transport, whose batch does not depend on timing) must exit 0, print
+   the mesh line and the unsharded engine's tokens; and the sharded
+   engine over 2 gloo ranks on this machine's CPU (reduced gemma-2b,
+   subprocesses) must give the unsharded CPU engine's tokens bitwise.
 14. Training (after gemma's AR phase, on its weights, which it then
    changes): 5 train steps of the diffusion objective, then 3 of the ar
    objective, each from a fresh AdamW state, at batch 4, seq 256 of the
@@ -149,9 +169,9 @@ Phases (any failure raises and the script exits non-zero):
 
 The kernel JSON has one row per hand-written kernel: K1, and both kernels
 of K2 and of K3, each with its launches on its paths (K1 on the served
-paths of gemma and mixtral and the paper path's fused solves, the
-tensor-core kernels on the bf16 one-shot paths, the CUDA-core kernels on
-the float32 one-shot paths of phase 13). The training path launches none
+paths of gemma, unsharded and sharded, and of mixtral, and the paper
+path's fused solves; the tensor-core kernels on the bf16 one-shot paths;
+the CUDA-core kernels on the float32 one-shot paths of phase 13). The training path launches none
 (the reference trains with ``use_pallas=False``; no kernel has a
 backward).
 
@@ -161,6 +181,7 @@ The line before the last is the kernel JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -175,7 +196,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SRC = Path(__file__).resolve().parent / "src"
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
 K1_TOL = 1e-6          # float32: FMA contraction and summation order
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX kernel tests' _tol
 K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}   # the JAX ssd_scan test's
@@ -659,15 +681,13 @@ def phase_serve(device, cfg, params):
     two staggered waves (a join), a warm replay that adds no executor, K1's
     launches against the ``ab`` group steps. Returns (sde, K1 launches of
     the cold run)."""
-    from repro_torch.core import RetirePolicy, VPSDE, get_timesteps, make_plan, solver_stages
+    from repro_torch.core import RetirePolicy, VPSDE
     from repro_torch.kernels import deis_step as K
     from repro_torch.serving.engine import DiffusionServeEngine, Request
 
     sde = VPSDE()
     wave1, wave2 = _requests(Request)
-    methods = {q.uid: make_plan(q.solver, sde, get_timesteps(
-        sde, max(1, q.nfe // solver_stages(q.solver)))).method
-        for q in wave1 + wave2}
+    methods = _methods(sde, Request)
     retire = RetirePolicy(tol=0.05, min_k=3, norm="rel")
     eng = DiffusionServeEngine(params, cfg, sde=sde, retire=retire,
                                seq_len_buckets=(128, 256), device=device)
@@ -727,6 +747,289 @@ def phase_serve(device, cfg, params):
           f"{cold_ms:.3f} ms over {h_cold['count']} steps, warm {warm_ms:.3f} ms "
           f"over {n_warm} steps; peak memory {peak / 2**30:.2f} GiB")
     return sde, launches
+
+
+def _methods(sde, Request):
+    """Each served request's plan method (K1 runs the ``ab`` steps)."""
+    from repro_torch.core import get_timesteps, make_plan, solver_stages
+    wave1, wave2 = _requests(Request)
+    return {q.uid: make_plan(q.solver, sde, get_timesteps(
+        sde, max(1, q.nfe // solver_stages(q.solver)))).method for q in wave1 + wave2}
+
+
+@contextlib.contextmanager
+def _one_rank_group(device):
+    """A one-rank default process group in this process (NCCL on the card,
+    gloo on the CPU) from a ``file://`` store under ``build/``, and the
+    request mesh over it (the engine adds its gloo control group). Raises
+    if the group does not come up; torn down on exit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_request_mesh
+    store = ROOT / "build" / f"dist_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    kw = {}
+    if device.type == "cuda":
+        kw["device_id"] = torch.device("cuda", device.index if device.index is not None
+                                       else torch.cuda.current_device())
+    dist.init_process_group("nccl" if kw else "gloo", init_method=f"file://{store}",
+                            rank=0, world_size=1, **kw)
+    try:
+        yield make_request_mesh()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def _tick_ms(eng, since):
+    """Mean ``serve_tick_seconds`` in ms since the snapshot ``since``."""
+    h = eng.metrics.snapshot()["serve_tick_seconds"]
+    return 1e3 * (h["sum"] - since["sum"]) / max(1, h["count"] - since["count"]), \
+        h["count"] - since["count"]
+
+
+CLI_DP_REQUESTS = 6   # the sharded CLI's sync run: 6 x tab3, 10 NFE, seq 128
+
+
+def phase_sharded_serve(device, cfg, params, sde):
+    """The served mix of phase_serve through ``DiffusionServeEngine(mesh=)``
+    on a one-rank data group (NCCL) plus its gloo control group: tokens,
+    NFE, early exits and final errors bitwise equal to the unsharded
+    engine's on the card (at one rank the local shapes are the unsharded
+    ones), a warm replay that adds no executor, K1's launches equal to the
+    ``ab`` group steps; warm ms per tick, sharded against unsharded, in
+    turns; then a ``ServeDriver`` over the sharded engine. Returns (K1
+    launches of the sharded cold run, the unsharded tokens of the sharded
+    CLI's requests, keyed by uid)."""
+    from repro_torch.core import RetirePolicy
+    from repro_torch.kernels import deis_step as K
+    from repro_torch.serving.driver import ServeDriver
+    from repro_torch.serving.engine import DiffusionServeEngine, Request
+
+    methods = _methods(sde, Request)
+    kw = dict(sde=sde, retire=RetirePolicy(tol=0.05, min_k=3, norm="rel"),
+              seq_len_buckets=(128, 256), device=device)
+    with _one_rank_group(device) as mesh:
+        plain = DiffusionServeEngine(params, cfg, **kw)
+        sharded = DiffusionServeEngine(params, cfg, mesh=mesh, **kw)
+        want, _, _ = _serve_waves(plain, Request, methods)
+        K.fused_ab_step.launches = 0
+        got, ab_steps, cold_s = _serve_waves(sharded, Request, methods)
+        launches = K.fused_ab_step.launches
+        key = lambda r: (r.uid, r.nfe, r.early_exit, r.final_err)
+        want_by, got_by = {r.uid: r for r in want}, {r.uid: r for r in got}
+        if sorted(want_by) != sorted(got_by):
+            raise AssertionError("the sharded engine completed other requests")
+        for uid, w in want_by.items():
+            g = got_by[uid]
+            if key(g) != key(w) or not np.array_equal(g.tokens, w.tokens):
+                raise AssertionError(f"request {uid}: sharded {key(g)} != unsharded {key(w)}"
+                                     " or other tokens")
+        if device.type == "cuda" and not (launches == ab_steps > 0):
+            raise AssertionError(f"sharded K1 launches {launches} != ab group steps {ab_steps}")
+        print(f"sharded serve {cfg.name} (one-rank {'nccl' if device.type == 'cuda' else 'gloo'}"
+              f" data group + gloo control): {len(got)} requests bitwise equal to the "
+              f"unsharded engine (tokens, nfe, early exits, final errors) in {cold_s:.3f} s "
+              f"cold; joins {sharded.joined_requests}, ab group steps {ab_steps}, K1 "
+              f"launches {launches}")
+        misses = sharded.metrics.snapshot()["serve_compile_cache_misses_total"]
+        ms = {"unsharded": [], "sharded": []}
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            eng = plain if name == "unsharded" else sharded
+            since = eng.metrics.snapshot()["serve_tick_seconds"]
+            warm, _, _ = _serve_waves(eng, Request, methods)
+            ms[name].append(_tick_ms(eng, since))
+            if not all(np.array_equal(r.tokens, want_by[r.uid].tokens) for r in warm):
+                raise AssertionError(f"warm {name} replay gave other tokens")
+        new = sharded.metrics.snapshot()["serve_compile_cache_misses_total"] - misses
+        if new != 0:
+            raise AssertionError(f"warm sharded replays added {new} executors")
+        (u1, n), (u2, _) = ms["unsharded"]
+        (s1, _), (s2, _) = ms["sharded"]
+        print(f"warm ms per tick ({n} ticks a replay; turns unsharded, sharded, sharded, "
+              f"unsharded): unsharded {u1:.3f}, {u2:.3f}; sharded {s1:.3f}, {s2:.3f}; "
+              f"control plane {(s1 + s2 - u1 - u2) / 2:.3f} ms a tick; new executors 0")
+        # the driver over the sharded engine (its scheduler thread makes every
+        # collective); the card's GEMMs depend on the batch the driver's
+        # timing forms, so only completion and shapes are asserted here
+        with ServeDriver(sharded) as drv:
+            handles = [drv.submit(Request(uid=500 + i, seq_len=128, nfe=6, solver="ddim",
+                                          seed=i)) for i in range(4)]
+            res = [h.result(timeout=300) for h in handles]
+        if [r.tokens.shape for r in res] != [(128,)] * 4 or \
+                sharded.metrics.snapshot()["driver_crash_total"] != 0:
+            raise AssertionError("the driver over the sharded engine failed")
+        print("sharded driver: 4 requests completed, no crash")
+        sharded.close()
+    # the sharded CLI's requests through an engine configured as the CLI's
+    cli = DiffusionServeEngine(params, cfg, sde=sde, device=device).serve(
+        [Request(uid=i, seq_len=128, nfe=10, solver="tab3", seed=i)
+         for i in range(CLI_DP_REQUESTS)])
+    return launches, {r.uid: r.tokens for r in cli}
+
+
+EP_TOL = 2e-2   # bf16 full width: |EP - moe| <= EP_TOL * max|moe| (a bf16 ulp is 2^-8)
+EP_LB_TOL = 1e-3
+
+
+def phase_expert_parallel(device, cfg, params, batch=4, seq=256, n=10):
+    """``moe_expert_parallel`` on a one-rank group against ``layers.moe``
+    (gather dispatch) on layer 0's MoE weights, capacity_factor 100 (no
+    drops on either), x (batch, seq, d_model) from a seed in the model's
+    dtype: the output within EP_TOL of max|moe|, the load-balance loss
+    within EP_LB_TOL; both timed (CUDA events, in turns)."""
+    from repro_torch.models import layers as L
+    from repro_torch.sharding.expert_parallel import moe_expert_parallel
+    moe_p = params["blocks"][0]["moe"]
+    cf = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=100.0),
+                   moe_dispatch="gather")
+    gen = torch.Generator(device=device).manual_seed(21)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=device).to(
+        moe_p["w_up"].dtype)
+    n_bytes = sum(t.numel() * t.element_size() for t in moe_p.values())
+    with _one_rank_group(device) as mesh:
+        out, aux = moe_expert_parallel(moe_p, cf, x, mesh)
+        want, aux_w = L.moe(moe_p, cf, x)
+        err = (out.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        d_lb = abs(aux["moe_lb"].item() - aux_w["moe_lb"].item())
+        if not (np.isfinite(err) and err <= EP_TOL * scale and d_lb <= EP_LB_TOL):
+            raise AssertionError(f"EP vs moe: {err:.3e} (max|moe| {scale:.3e}), lb {d_lb:.3e}")
+        times = {"ep": [], "moe": []}
+        if device.type == "cuda":
+            timed = _timer(device)
+            for name in ("moe", "ep", "ep", "moe"):
+                fn = (lambda: moe_expert_parallel(moe_p, cf, x, mesh)) if name == "ep" \
+                    else (lambda: L.moe(moe_p, cf, x))
+                times[name].append(timed(fn, n=n, warm=2))
+    ms = lambda k: "not measured (cpu)" if not times[k] else \
+        ", ".join(f"{t:.3f}" for t in times[k]) + " ms"
+    print(f"expert parallel {cfg.name} layer 0 ({cfg.moe.num_experts} experts, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, {x.dtype}, {n_bytes / 1e9:.2f} GB of weights), "
+          f"x {tuple(x.shape)}, one rank: max abs diff {err:.3e} against layers.moe "
+          f"(gather, capacity_factor 100; max|moe| {scale:.3e}, tol {EP_TOL} x it), lb "
+          f"{aux['moe_lb'].item():.6f} vs {aux_w['moe_lb'].item():.6f}; time EP {ms('ep')}, "
+          f"layers.moe {ms('moe')} (turns moe, ep, ep, moe)")
+
+
+_CPU_RANKS_CHILD = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world, store = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.set_num_threads(2)
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=world)
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_request_mesh
+from repro_torch.models.transformer import init_params
+from repro_torch.serving.engine import DiffusionServeEngine, Request
+cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+params = init_params(cfg, 0, "cpu")
+reqs = [Request(uid=i, seq_len=16, nfe=[3, 7][i % 2], solver="ddim", seed=i) for i in range(8)]
+reqs += [Request(uid=100 + i, seq_len=12, nfe=4, solver=s, seed=50 + i)
+         for i, s in enumerate(["em", "tab3", "seeds2"])]
+eng = DiffusionServeEngine(params, cfg, max_group=8, seq_len_buckets=(16,),
+                           mesh=make_request_mesh(), device="cpu")
+if rank == 0:
+    for r in reqs[:4]:
+        eng.submit(r)
+    eng.heartbeat()          # the followers take these submits without a tick
+    got = {r.uid: r.tokens for r in eng.serve(list(reqs[4:]))}
+    eng.close()
+    want = {r.uid: r.tokens for r in DiffusionServeEngine(
+        params, cfg, max_group=8, seq_len_buckets=(16,), device="cpu").serve(list(reqs))}
+    assert got.keys() == want.keys()
+    for uid in want:
+        assert np.array_equal(got[uid], want[uid]), uid
+    print(f"CPU_RANKS_OK {world} ranks, {len(want)} requests, torch {torch.__version__}, "
+          f"batches {sorted({k[1] for k in eng._compiled})}, compactions "
+          f"{int(eng.metrics.snapshot()['serve_compactions_total'])}")
+else:
+    eng.follow()
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def start_cpu_ranks(world=2):
+    """The sharded engine over ``world`` gloo ranks on this machine's CPU
+    (reduced float32 gemma-2b, ragged NFE, compaction, three families), as
+    subprocesses; rank 0 holds every token against the unsharded CPU engine."""
+    tmp = ROOT / "build" / f"cpu_ranks_{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    script = tmp / "child.py"
+    script.write_text(_CPU_RANKS_CHILD)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(SRC)] + [
+                   p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), str(r), str(world), str(tmp / "store")],
+                stdout=f, stderr=subprocess.STDOUT, env=env))
+    atexit.register(_stop, procs)     # a phase that fails before they finish
+    return procs, logs, time.perf_counter()
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_cpu_ranks(procs, logs, t0):
+    for p in procs:
+        p.wait(timeout=300)
+    text = [log.read_text() for log in logs]
+    ok = [ln for ln in text[0].splitlines() if ln.startswith("CPU_RANKS_OK")]
+    if any(p.returncode for p in procs) or not ok:
+        raise AssertionError("the CPU ranks failed:\n" + "\n".join(
+            f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(text)))
+    print(f"cpu ranks: {ok[0][len('CPU_RANKS_OK '):]}; tokens bitwise equal to the "
+          f"unsharded CPU engine; {time.perf_counter() - t0:.1f} s")
+
+
+def start_dp_cli(device, reduced):
+    """``torchrun --standalone --nproc_per_node=1 -m repro_torch.launch.serve
+    --arch gemma_2b --data-parallel`` (sync transport: the tokens of a batch
+    that does not depend on timing) as a subprocess."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "repro_torch.launch.serve", "--arch", "gemma_2b", "--data-parallel",
+           "--requests", str(CLI_DP_REQUESTS), "--seq-len", "128"]
+    if device.type != "cuda":
+        cmd += ["--device", "cpu"]
+    if reduced:
+        cmd += ["--reduced"]
+    # torchrun would set one CPU thread; the same count as this process keeps
+    # the CPU rehearsal's GEMM summation order (and so its tokens) the same
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()),
+               PYTHONPATH=os.pathsep.join([str(SRC)] + [
+                   p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    print("cli: " + " ".join(cmd[1:]))
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env), time.perf_counter()
+
+
+def finish_dp_cli(proc, t0, want):
+    """Exit 0, the mesh line, and the first four results' tokens equal to
+    the unsharded engine's on the same weights and batch."""
+    out, err = proc.communicate(timeout=600)
+    mesh = [ln for ln in out.splitlines() if ln.startswith("request-parallel mesh: 1 ")]
+    lines = {int(m.group(1)): m.group(2) for m in
+             re.finditer(r"^req (\d+): .*tokens\[:10\]=(\[[^\]]*\])", out, re.M)}
+    expect = {uid: f"{want[uid][:10]}" for uid in sorted(want)[:4]}
+    if proc.returncode != 0 or not mesh or f"served {CLI_DP_REQUESTS} requests" not in out \
+            or lines != expect:
+        raise AssertionError(f"the data-parallel launcher exited {proc.returncode} "
+                             f"(tokens {lines} vs {expect}):\n{out[-2000:]}\n{err[-2000:]}")
+    print(f"cli --data-parallel: exit 0 after {time.perf_counter() - t0:.1f} s; {mesh[0]}; "
+          f"served {CLI_DP_REQUESTS} requests, tokens of the 4 printed equal to the unsharded "
+          "engine's")
 
 
 def _local_open(url, data=None):
@@ -2183,6 +2486,8 @@ def main(argv=None) -> int:
     phase_step_breakdown(device, cfg, params, sde, k1)
     phase_batch_invariance(device, cfg, params, sde)
     lap("serve")
+    sharded_launches, dp_cli_tokens = phase_sharded_serve(device, cfg, params, sde)
+    lap("sharded serve")
     phase_http(device, cfg, params, sde, args.reduced)
     lap("http")
     gemma = phase_one_shot(device, cfg, params, args.reduced)
@@ -2210,6 +2515,8 @@ def main(argv=None) -> int:
     mixtral = phase_one_shot(device, cfg, params, args.reduced)
     phase_moe_parts(device, cfg, params, args.reduced)
     lap("one-shot mixtral")
+    phase_expert_parallel(device, cfg, params)
+    lap("expert parallel mixtral")
     cf100 = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=100.0))
     print(f"ar {cfg.name} at capacity_factor 100: no (token, choice) pair drops on either "
           "path (at 1.25 the full forward would drop pairs that a decode step keeps)")
@@ -2236,20 +2543,23 @@ def main(argv=None) -> int:
     lap("train cifar10-scorenet")
     paper = phase_paper(device, args.reduced)
     lap("paper")
-    clis = [start_cli(device, args.reduced), start_train_cli(device, args.reduced)]
+    # the CPU ranks start here, beside the card-vs-cpu phase: earlier they
+    # would share the host with the timed serving phases
+    cpu_ranks = start_cpu_ranks()
+    clis = [start_cli(device, args.reduced), start_train_cli(device, args.reduced),
+            start_dp_cli(device, args.reduced)]
     try:
         f32_path = phase_card_vs_cpu(device)
         lap("card vs cpu")
         finish_cli(*clis[0])
         finish_train_cli(*clis[1])
-        lap("clis (after card vs cpu)")
+        finish_dp_cli(*clis[2], dp_cli_tokens)
+        finish_cpu_ranks(*cpu_ranks)
+        lap("clis and cpu ranks (after card vs cpu)")
     finally:
-        for proc, _ in clis:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        _stop([proc for proc, _ in clis] + cpu_ranks[0])
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    # launches: K1 on the served paths (gemma's and mixtral's) and the paper
+    # launches: K1 on the served paths (gemma's, gemma's sharded and mixtral's) and the paper
     # path's fused ab solves (the score net, x (1, 1024, 2)); the
     # tensor-core kernels on the bf16 one-shot paths (K2: gemma's, mixtral's,
     # whisper's and paligemma's); the CUDA-core kernels on the float32
@@ -2260,7 +2570,7 @@ def main(argv=None) -> int:
                  for run in [gemma, mixtral] + list(cond_paths.values()))
     k1 = dict(k1, max_abs_err=max(k1["max_abs_err"], paper["max_abs_err"]))
     rows = [("fused_ab_step", "triton", "deis_step.py", "deis_step.py:45",
-             launches + paper["launches"], k1),
+             launches + sharded_launches + paper["launches"], k1),
             ("flash_attention_tensor_cores", "cuda", "csrc/flash_attention.cu",
              "flash_attention.py:41", k2_mma, k2["gemma"]["tensor_cores"]),
             ("flash_attention_cuda_cores", "cuda", "csrc/flash_attention.cu",

@@ -245,18 +245,34 @@ def _row_index(rows, device) -> torch.Tensor:
     return idx.to(device)
 
 
-def take_rows(plan: SolverPlan, rows) -> SolverPlan:
+def place_plan(plan: SolverPlan, shardings) -> SolverPlan:
+    """This rank's block of a whole (every rank holds it) plan under a
+    plan-shaped tree of :class:`repro_torch.sharding.rules.NamedSharding`
+    (a row-sharded leaf keeps this rank's contiguous block of rows, a
+    replicated one stays whole)."""
+    return dataclasses.replace(
+        plan, coeffs={k: shardings.coeffs[k].local(v) for k, v in plan.coeffs.items()},
+        ts=shardings.ts.local(plan.ts))
+
+
+def take_rows(plan: SolverPlan, rows, shardings=None) -> SolverPlan:
     """Row-gather a stacked plan: keep requests ``rows`` (a host index
     sequence), in that order. Every leaf is gathered on axis 0, so the
     surviving rows are bit-identical to what they were in the larger stack
     (the plan half of mid-flight compaction; the state half is
-    :func:`repro_torch.core.sampler.take_state_rows`)."""
+    :func:`repro_torch.core.sampler.take_state_rows`).
+
+    ``shardings`` (a plan-shaped tree of ``NamedSharding``, e.g. from
+    :func:`repro_torch.sharding.rules.plan_specs`) returns this rank's block
+    of the new row layout instead (:func:`place_plan`); ``plan`` is then the
+    whole plan, which every rank of the mesh holds."""
     if not plan.stacked:
         raise ValueError("take_rows requires a stacked plan")
     idx = _row_index(rows, plan.ts.device)
-    return dataclasses.replace(
+    out = dataclasses.replace(
         plan, coeffs={k: v[idx] for k, v in plan.coeffs.items()},
         ts=plan.ts[idx])
+    return out if shardings is None else place_plan(out, shardings)
 
 
 def _rowless_signature(plan: SolverPlan) -> tuple:
@@ -267,7 +283,7 @@ def _rowless_signature(plan: SolverPlan) -> tuple:
             tuple(plan.ts.shape[1:]), leaves)
 
 
-def join_rows(plan: SolverPlan, new_plans) -> SolverPlan:
+def join_rows(plan: SolverPlan, new_plans, shardings=None) -> SolverPlan:
     """Splice joiner rows onto a stacked plan's request axis.
 
     ``new_plans`` are unstacked same-family plans; each is padded to the
@@ -275,6 +291,8 @@ def join_rows(plan: SolverPlan, new_plans) -> SolverPlan:
     group). The leading rows are the original stack bit-for-bit and the
     appended rows the padded joiners bit-for-bit, so
     ``take_rows(join_rows(p, new), range(p.batch))`` round-trips to ``p``.
+    ``shardings`` returns this rank's block of the joined rows, as in
+    :func:`take_rows`.
     """
     if not plan.stacked:
         raise ValueError("join_rows splices rows onto a stacked plan")
@@ -296,12 +314,13 @@ def join_rows(plan: SolverPlan, new_plans) -> SolverPlan:
         raise ValueError(
             f"joiner rows are not of the stack's family:\n  "
             f"{_rowless_signature(plan)}\n  {_rowless_signature(add)}")
-    return dataclasses.replace(
+    out = dataclasses.replace(
         plan,
         coeffs={k: torch.cat([plan.coeffs[k], add.coeffs[k]])
                 for k in plan.coeffs},
         ts=torch.cat([plan.ts, add.ts]),
         nfe=max(plan.nfe, add.nfe))
+    return out if shardings is None else place_plan(out, shardings)
 
 
 def inert_row(plan: SolverPlan) -> SolverPlan:

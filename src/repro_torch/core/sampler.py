@@ -16,6 +16,19 @@ The counterpart of ``repro.core.sampler``. Public API:
   ``init_state(plan, x_T, key=None)``
       Build the initial ``SamplerState``.
 
+Request-axis sharding (``mesh=``, ``shardings=``). The port is
+multi-controller: one process per device, each running the same call on
+the same whole inputs. ``sample``/``step`` with ``mesh`` (a 1-axis
+``('data',)`` ``DeviceMesh``) cut every request-axis leaf into contiguous
+row blocks, solve this rank's block, and all-gather the result over the
+mesh's group, so every rank returns the whole answer. Rows never mix, so
+the result is the unsharded one bitwise wherever the eps-net is
+batch-invariant (the CPU). ``take_state_rows``/``join_state_rows`` with
+``shardings`` work on this rank's block and move rows between ranks when
+the new layout gives a row another owner: ``x``, ``hist`` and ``err`` in
+one ``all_to_all_single`` over the mesh's group (NCCL between cards), each
+row's generator state over the mesh's gloo control group.
+
 Random numbers. A stochastic plan draws its per-step noise from
 ``state.key``: one ``torch.Generator`` for an unstacked solve, a tuple of
 per-row generators for a stacked one. Stacked rows draw row by row, each
@@ -32,13 +45,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.ops import fused_ab_step as _fused_ab_step
-from .plan import SolverPlan, _row_index
+from .plan import SolverPlan, _row_index, place_plan
 
 Tensor = torch.Tensor
 EpsFn = Callable[[Tensor, Tensor], Tensor]
@@ -108,27 +123,44 @@ def init_state(plan: SolverPlan, x_T: Tensor, key=None) -> SamplerState:
     return SamplerState(x=x_T, hist=hist, key=key, k=0, err=err)
 
 
-def take_state_rows(state: SamplerState, rows) -> SamplerState:
+def take_state_rows(state: SamplerState, rows, shardings=None) -> SamplerState:
     """Row-gather a stacked solve's state: keep requests ``rows`` (a host
     index sequence), in order. ``x`` is gathered on axis 0, ``hist`` on
     axis 1 and the per-row generators move with their rows, so a compacted
     solve continues bit-exactly (the state half of mid-flight compaction;
-    the plan half is :func:`repro_torch.core.plan.take_rows`)."""
+    the plan half is :func:`repro_torch.core.plan.take_rows`).
+
+    ``shardings`` (a ``SamplerState`` of ``NamedSharding``, from
+    :func:`_request_shardings`) makes it the sharded half: ``state`` is this
+    rank's row block, ``rows`` index the whole row axis (the ranks' blocks
+    in rank order), and the result is this rank's block of the ``len(rows)``
+    kept rows (collective: every rank of the mesh calls it)."""
     rows = list(rows)
+    mesh = _row_mesh(shardings)
+    if mesh is not None:
+        return _move_rows(state, rows, None, mesh)
     idx = _row_index(rows, state.x.device)
     key = tuple(_clone_generator(state.key[i]) for i in rows)
     return SamplerState(x=state.x[idx], hist=state.hist[:, idx], key=key,
                         k=state.k, err=state.err[idx])
 
 
-def join_state_rows(state: SamplerState, new: SamplerState) -> SamplerState:
+def join_state_rows(state: SamplerState, new: SamplerState,
+                    shardings=None, rows=None) -> SamplerState:
     """Splice a fresh stacked state onto an in-flight stacked solve's rows.
 
     ``x``, ``err`` and the generators concatenate on the row axis, ``hist``
     on axis 1, so the veteran rows keep their slots bit-for-bit and the
     joiners start from zero history and their untouched generators -- what
     a solo solve starts from. ``k`` keeps the veteran counter (the serving
-    engine tracks per-row counts on the host)."""
+    engine tracks per-row counts on the host). ``rows`` (a host index
+    sequence) keeps only those veterans, in order, as
+    :func:`take_state_rows` would first.
+
+    ``shardings`` (as for :func:`take_state_rows`): ``state`` is this
+    rank's block of the veteran rows, ``new`` the joiners' whole state
+    (every rank holds it), and the result this rank's block of the kept
+    veterans then the joiners, in one row move (collective)."""
     if not isinstance(state.key, tuple) or not isinstance(new.key, tuple):
         raise ValueError("join_state_rows splices stacked states (per-row "
                          "generator tuples on both sides)")
@@ -136,11 +168,179 @@ def join_state_rows(state: SamplerState, new: SamplerState) -> SamplerState:
         raise ValueError(f"history length mismatch: {state.hist.shape[0]} vs "
                          f"{new.hist.shape[0]} (joiners must share the "
                          "group's plan family)")
+    mesh = _row_mesh(shardings)
+    if mesh is not None:
+        return _move_rows(state, rows, new, mesh)
+    if rows is not None:
+        state = take_state_rows(state, rows)
     key = tuple(_clone_generator(g) for g in state.key + new.key)
     return SamplerState(x=torch.cat([state.x, new.x], dim=0),
                         hist=torch.cat([state.hist, new.hist], dim=1),
                         key=key, k=state.k,
                         err=torch.cat([state.err, new.err], dim=0))
+
+
+# ----------------------------------------------------- request-axis sharding
+def _request_shardings(plan: SolverPlan, state: SamplerState, mesh):
+    """(plan, state) ``NamedSharding`` trees for data-parallel stacked
+    execution."""
+    from ..sharding.rules import plan_specs, state_specs, to_shardings
+    return (to_shardings(plan_specs(plan, mesh), mesh),
+            to_shardings(state_specs(state, mesh), mesh))
+
+
+def _row_mesh(shardings):
+    """The mesh that ``shardings`` cuts the row axis over, or None when the
+    rows replicate (no shardings, an unstacked state, or a batch the data
+    axis does not divide)."""
+    if shardings is None or shardings.x.spec[:1] in ((), (None,)):
+        return None
+    return shardings.x.mesh
+
+
+def _rank(mesh) -> tuple[int, int]:
+    """(this rank's index on the data axis, the axis size)."""
+    return mesh.get_local_rank(mesh.mesh_dim_names[0]), mesh.size(0)
+
+
+def place_state(state: SamplerState, shardings) -> SamplerState:
+    """This rank's block of a whole stacked state (no communication)."""
+    if _row_mesh(shardings) is None:
+        return state
+    from ..sharding.rules import block_range
+    me, w = _rank(shardings.x.mesh)
+    lo, hi = block_range(len(state.key), w, me)
+    return SamplerState(x=shardings.x.local(state.x),
+                        hist=shardings.hist.local(state.hist),
+                        key=state.key[lo:hi], k=state.k,
+                        err=shardings.err.local(state.err))
+
+
+def shard_state(plan: SolverPlan, state: SamplerState, mesh):
+    """This rank's blocks of a whole stacked (plan, state) pair: every
+    request-axis leaf (coefficients, ``ts``, ``x``, ``hist``, ``err``, the
+    generators) cut into contiguous row blocks over ``mesh``'s data axis
+    when the batch divides it; otherwise both stay whole (replicated)."""
+    plan_sh, state_sh = _request_shardings(plan, state, mesh)
+    if _row_mesh(state_sh) is None:
+        return plan, state
+    return place_plan(plan, plan_sh), place_state(state, state_sh)
+
+
+def _gen_state(g):
+    return None if g is None else g.get_state()
+
+
+def _gen_from(st, device):
+    if st is None:
+        return None
+    g = torch.Generator(device=device)
+    g.set_state(st)
+    return g
+
+
+def _pack_rows(state: SamplerState) -> Tensor:
+    """(n, F): each local row's ``x``, ``hist`` and ``err`` in one row."""
+    n, m = state.x.shape[0], math.prod(state.x.shape[1:])
+    if not (state.x.dtype == state.hist.dtype == state.err.dtype):
+        raise ValueError("row moves pack x, hist and err in one dtype")
+    return torch.cat([state.x.reshape(n, m),
+                      state.hist.transpose(0, 1).reshape(n, state.hist.shape[0] * m),
+                      state.err.reshape(n, 1)], dim=1).contiguous()
+
+
+def _unpack_rows(buf: Tensor, like: SamplerState, key, k) -> SamplerState:
+    n, inner, h = buf.shape[0], tuple(like.x.shape[1:]), like.hist.shape[0]
+    m = math.prod(inner)
+    x = buf[:, :m].reshape((n,) + inner)
+    hist = buf[:, m:m + h * m].reshape((n, h) + inner).transpose(0, 1).contiguous()
+    return SamplerState(x=x, hist=hist, key=key, k=k, err=buf[:, -1].contiguous())
+
+
+def _move_rows(state: SamplerState, rows, new, mesh) -> SamplerState:
+    """This rank's block of a new row layout, built from the old layout's
+    blocks (``state`` is this rank's): new row ``j < len(rows)`` is old
+    global row ``rows[j]`` (``rows`` None: every old row in order), the rest
+    come from ``new``, a whole state every rank holds. Blocks are
+    ``block_range`` of the row counts. One gloo all-gather carries the
+    blocks' row counts and generator states, one ``all_to_all_single`` over
+    the data group carries the rows whose owner changes (and the rows that
+    stay, as a local copy)."""
+    from ..launch.mesh import control_group, data_group
+    from ..sharding.rules import block_range
+    me, w = _rank(mesh)
+    info = [None] * w
+    dist.all_gather_object(info, (state.x.shape[0], [_gen_state(g) for g in state.key]),
+                           group=control_group(mesh))
+    starts = np.cumsum([0] + [n for n, _ in info])
+    gens = [st for _, sts in info for st in sts]          # whole row axis, in order
+    rows = list(range(starts[-1])) if rows is None else list(rows)
+    n_old = len(rows)
+    n_all = n_old + (0 if new is None else new.x.shape[0])
+    owner_old = lambda i: int(np.searchsorted(starts, i, side="right")) - 1
+    owner_new = lambda j: next(q for q in range(w) if j < block_range(n_all, w, q)[1])
+    lo, hi = block_range(n_all, w, me)
+    send = [[] for _ in range(w)]          # local old indices, by new owner
+    recv = [[] for _ in range(w)]          # my new rows, by old owner
+    for j, i in enumerate(rows):
+        if owner_old(i) == me:
+            send[owner_new(j)].append(i - int(starts[me]))
+        if lo <= j < hi:
+            recv[owner_old(i)].append(j)
+    packed = _pack_rows(state)
+    order = [i for dst in send for i in dst]
+    sent = packed[torch.as_tensor(order, dtype=torch.long, device=packed.device)]
+    got = packed.new_empty((sum(map(len, recv)), packed.shape[1]))
+    dist.all_to_all_single(got, sent, [len(r) for r in recv], [len(s) for s in send],
+                           group=data_group(mesh))
+    # the buffer is grouped by sender, each sender's rows in new-row order
+    arrived = [j for src in recv for j in src]
+    got = got[torch.as_tensor(np.argsort(arrived, kind="stable"), dtype=torch.long,
+                              device=got.device)]
+    dev = state.x.device
+    key = [_gen_from(gens[rows[j]], dev) for j in range(lo, min(hi, n_old))]
+    moved = _unpack_rows(got, state, None, state.k)
+    if new is None or hi <= n_old:
+        return moved._replace(key=tuple(key))
+    a, b = max(lo, n_old) - n_old, hi - n_old
+    key += [_clone_generator(g) for g in new.key[a:b]]
+    return SamplerState(x=torch.cat([moved.x, new.x[a:b]], dim=0),
+                        hist=torch.cat([moved.hist, new.hist[:, a:b]], dim=1),
+                        key=tuple(key), k=state.k,
+                        err=torch.cat([moved.err, new.err[a:b]], dim=0))
+
+
+def _gather_rows(t: Tensor, dim: int, mesh) -> Tensor:
+    """The whole row axis of equal row blocks ``t`` (rows on ``dim``)."""
+    from ..launch.mesh import data_group
+    _, w = _rank(mesh)
+    parts = [torch.empty_like(t) for _ in range(w)]
+    dist.all_gather(parts, t.contiguous(), group=data_group(mesh))
+    return torch.cat(parts, dim=dim)
+
+
+def _sync_generators(key: tuple, mesh) -> None:
+    """After a sharded stochastic step each rank has advanced only its own
+    rows' generators: set every other row's generator of the whole
+    ``key`` tuple to its owner's state."""
+    from ..launch.mesh import control_group
+    from ..sharding.rules import block_range
+    me, w = _rank(mesh)
+    lo, hi = block_range(len(key), w, me)
+    info = [None] * w
+    dist.all_gather_object(info, [_gen_state(g) for g in key[lo:hi]],
+                           group=control_group(mesh))
+    for i, st in enumerate(s for part in info for s in part):
+        if not lo <= i < hi and st is not None:
+            key[i].set_state(st)
+
+
+def _local_rows(v, mesh, n: int):
+    """This rank's block of a per-row host vector or a row-leading tensor."""
+    from ..sharding.rules import block_range
+    me, w = _rank(mesh)
+    lo, hi = block_range(n, w, me)
+    return v[lo:hi]
 
 
 # ------------------------------------------------------------------ steps
@@ -371,8 +571,8 @@ def _step_pndm(plan: SolverPlan, k, k_host, state: SamplerState,
 
 
 def step(plan: SolverPlan, k, state: SamplerState, eps_fn: EpsFn, *,
-         hooks: Optional[Hooks] = None, noise: Optional[Tensor] = None
-         ) -> SamplerState:
+         hooks: Optional[Hooks] = None, noise: Optional[Tensor] = None,
+         mesh=None) -> SamplerState:
     """Advance one solver step: ``state`` at time ``ts[k]`` -> ``ts[k+1]``.
 
     ``k`` is a host int, or -- for a stacked plan -- a host sequence of
@@ -380,8 +580,16 @@ def step(plan: SolverPlan, k, state: SamplerState, eps_fn: EpsFn, *,
     to the grid, so a row riding past its own horizon indexes only inert
     padded coefficients). ``noise`` (shaped like ``state.x``) replaces the
     stochastic draw of this step.
+
+    ``mesh`` (collective): ``plan`` and ``state`` are whole, every rank
+    steps its row block and the new state is all-gathered (``x``, ``hist``,
+    ``err``, and the generators' states of a stochastic plan), so every rank
+    returns the whole new state. The serving engine's executors instead
+    step their own blocks and pass no mesh.
     """
     plan = plan.astype(state.x.dtype)
+    if mesh is not None:
+        return _step_on_mesh(plan, k, state, eps_fn, hooks, noise, mesh)
     hooks = hooks or _DEFAULT_HOOKS
     if np.ndim(k):
         if not plan.stacked:
@@ -400,8 +608,24 @@ def step(plan: SolverPlan, k, state: SamplerState, eps_fn: EpsFn, *,
     raise ValueError(f"unknown step method {plan.method!r}")
 
 
+def _step_on_mesh(plan, k, state, eps_fn, hooks, noise, mesh) -> SamplerState:
+    plan_sh, state_sh = _request_shardings(plan, state, mesh)
+    if _row_mesh(state_sh) is None:
+        return step(plan, k, state, eps_fn, hooks=hooks, noise=noise)
+    n = plan.batch
+    local = step(place_plan(plan, plan_sh),
+                 _local_rows(list(k), mesh, n) if np.ndim(k) else k,
+                 place_state(state, state_sh), eps_fn, hooks=hooks,
+                 noise=None if noise is None else _local_rows(noise, mesh, n))
+    if plan.stochastic:
+        _sync_generators(state.key, mesh)
+    return SamplerState(x=_gather_rows(local.x, 0, mesh),
+                        hist=_gather_rows(local.hist, 1, mesh), key=state.key,
+                        k=local.k, err=_gather_rows(local.err, 0, mesh))
+
+
 def sample(plan: SolverPlan, eps_fn: EpsFn, x_T: Tensor, key=None, *,
-           hooks: Optional[Hooks] = None, tracer=None, noise=None):
+           hooks: Optional[Hooks] = None, tracer=None, noise=None, mesh=None):
     """Run the full solve from ``x_T`` at ``ts[0]`` down to ``ts[-1]``.
 
     Returns ``x_0``, or ``(x_0, trajectory)`` if ``hooks.record_trajectory``.
@@ -409,17 +633,37 @@ def sample(plan: SolverPlan, eps_fn: EpsFn, x_T: Tensor, key=None, *,
     the stochastic draws. ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`)
     wraps each step in a ``sample.step`` span (host-side dispatch time; no
     device sync).
+
+    ``mesh`` (collective) shards a stacked solve's request axis: each rank
+    solves its row block and the result (and trajectory) is all-gathered,
+    so every rank returns the whole ``x_0``; a stochastic plan's generators
+    end where the unsharded solve leaves them.
     """
     hooks = hooks or _DEFAULT_HOOKS
     state = init_state(plan, x_T, key)
     plan = plan.astype(x_T.dtype)
+    whole_key, n_rows = state.key, plan.batch
+    sharded = None
+    if mesh is not None:
+        plan_sh, state_sh = _request_shardings(plan, state, mesh)
+        sharded = _row_mesh(state_sh)
+        if sharded is not None:
+            plan, state = place_plan(plan, plan_sh), place_state(state, state_sh)
     span = (tracer.span if tracer is not None
             else lambda _name: contextlib.nullcontext())
     traj = []
     for k in range(plan.n_steps):
+        nz = None if noise is None else noise[k]
+        if nz is not None and sharded is not None:
+            nz = _local_rows(nz, sharded, n_rows)
         with span("sample.step"):
-            state = step(plan, k, state, eps_fn, hooks=hooks,
-                         noise=None if noise is None else noise[k])
+            state = step(plan, k, state, eps_fn, hooks=hooks, noise=nz)
         if hooks.record_trajectory:
             traj.append(state.x)
-    return (state.x, torch.stack(traj)) if hooks.record_trajectory else state.x
+    x0 = state.x
+    if sharded is not None:
+        if plan.stochastic:
+            _sync_generators(whole_key, sharded)
+        x0 = _gather_rows(x0, 0, sharded)
+        traj = [_gather_rows(t, 0, sharded) for t in traj]
+    return (x0, torch.stack(traj)) if hooks.record_trajectory else x0

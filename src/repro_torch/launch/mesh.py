@@ -1,0 +1,98 @@
+"""Device meshes on torch.distributed (the counterpart of
+``repro.launch.mesh``, without its TPU roofline constants).
+
+Functions, not module-level constants: importing this module touches no
+process group, and no builder initialises one. Each needs the default
+process group up already (``torch.distributed.init_process_group``, as
+``launch.serve --data-parallel`` does under ``torchrun``), and each mesh
+spans every rank of it, rank order kept. The port is multi-controller: one
+process per device, every rank builds the same mesh. A mesh lies on the
+device type of the default backend: "cuda" under NCCL, "cpu" under gloo.
+"""
+from __future__ import annotations
+
+import math
+import weakref
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+from ..sharding.rules import axis_sizes
+
+
+def _world() -> int:
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "a mesh needs the default process group: call "
+            "torch.distributed.init_process_group first (a mesh never "
+            "initialises one)")
+    return dist.get_world_size()
+
+
+def _mesh(shape: tuple, names: tuple):
+    from torch.distributed.device_mesh import DeviceMesh
+    n = _world()
+    if math.prod(shape) != n:
+        raise ValueError(f"a {dict(zip(names, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks, the world has {n}")
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(dev, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (16, 16) ('data', 'model'); multi-pod: (2, 16, 16)
+    ('pod', 'data', 'model'). Raises unless the world has that many ranks."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"))
+    return _mesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh(model: int = 1):
+    """('data', 'model') over every rank, ``model`` of them a data group."""
+    n = _world()
+    if n % model:
+        raise ValueError(f"model={model} does not divide the {n} ranks")
+    return _mesh((n // model, model), ("data", "model"))
+
+
+def make_request_mesh(data: int | None = None):
+    """1-axis ('data',) mesh for request-parallel serving and sampling over
+    every rank (``data``, when given, must be the world size: every rank
+    of an SPMD server runs the engine)."""
+    n = _world() if data is None else data
+    return _mesh((n,), ("data",))
+
+
+def mesh_fingerprint(mesh) -> tuple:
+    """Hashable identity of a mesh for executor-cache keys: axis names and
+    sizes, then the ranks in mesh order."""
+    return (tuple(axis_sizes(mesh).items()),
+            tuple(int(r) for r in mesh.mesh.flatten().tolist()))
+
+
+# How long a rank waits in a control-group collective before it raises. An
+# idle leader sends a heartbeat well inside it (``serving.driver``).
+CONTROL_TIMEOUT = timedelta(minutes=30)
+
+# default process group -> {mesh fingerprint: control group}; weak, so the
+# groups of a destroyed world go with it and a later world never gets them
+_CONTROL: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def control_group(mesh):
+    """The gloo group over ``mesh``'s ranks that carries host values (tick
+    inputs, error estimates, tokens, generator states), with the timeout
+    ``CONTROL_TIMEOUT``: made once per mesh layout and default process
+    group (every rank must ask in the same order, as for any group)."""
+    groups = _CONTROL.setdefault(dist.distributed_c10d._get_default_group(), {})
+    key = mesh_fingerprint(mesh)
+    if key not in groups:
+        groups[key] = dist.new_group(mesh.mesh.flatten().tolist(), backend="gloo",
+                                     timeout=CONTROL_TIMEOUT)
+    return groups[key]
+
+
+def data_group(mesh):
+    """The group of a 1-axis mesh (NCCL between cards, gloo on the CPU)."""
+    return mesh.get_group(mesh.mesh_dim_names[0])

@@ -27,8 +27,15 @@ AR mode (greedy prefill + decode over the KV / SSM cache):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma_2b \
         --mode ar --requests 4 --max-new 16
 
-On the CPU add ``--device cpu --reduced``. ``--data-parallel`` (the
-reference's request-axis mesh) is not ported and raises. A vlm arch
+On the CPU add ``--device cpu --reduced``.
+
+Request-axis data parallelism (diffusion mode), one process per device:
+    torchrun --nproc_per_node=N -m repro_torch.launch.serve --arch gemma_2b \
+        --data-parallel --transport driver
+Each rank serves on ``cuda:LOCAL_RANK`` with an NCCL data group and a gloo
+control group (gloo for both with ``--device cpu``); without torchrun's
+environment the process runs a one-rank group. Rank 0 owns every
+transport and prints everything; the other ranks follow its ticks. A vlm arch
 (paligemma_3b) serves as a text-only decoder, without its image prefix, as
 in the reference; an encdec arch (whisper_tiny) raises, since the engines
 take no encoder frames (run it through ``sample_tokens(frames=)`` or the
@@ -40,9 +47,12 @@ import argparse
 import asyncio
 import itertools
 import json
+import os
 import threading
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..configs.base import ARCH_IDS, get_config
 from ..device import resolve_device
@@ -273,29 +283,77 @@ def main(argv=None):
                          "record_function ranges so they attach to device "
                          "work in torch.profiler traces")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard stacked solves over the request axis "
-                         "(not ported: raises)")
+                    help="shard stacked solves over the request axis on a "
+                         "('data',) mesh over every rank (one process per "
+                         "device, e.g. under torchrun; without its "
+                         "environment, a one-rank group in this process)")
+    ap.add_argument("--dist-init-method", default="env://",
+                    help="init method of the process group under a "
+                         "launcher's RANK / WORLD_SIZE environment (default "
+                         "env://, the MASTER_ADDR / MASTER_PORT torchrun sets)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu runs "
                          "the port on the CPU explicitly)")
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel (request-axis sharding over several devices) is "
-            "not ported yet: it is ROADMAP Queue 1's multi-GPU item; serve "
-            "on one device without it")
-    device = resolve_device(args.device)
+    sharded = args.data_parallel and args.mode == "diffusion"
+    if sharded:
+        device = _init_process_group(args.device, args.dist_init_method)
+    else:
+        device = resolve_device(args.device)
+    try:
+        _serve(args, device, sharded)
+        if sharded:
+            dist.barrier()      # every rank past its last collective before teardown
+    finally:
+        if sharded and dist.is_initialized():   # a mesh engine that failed
+            dist.destroy_process_group()        # closed has destroyed it
+
+
+def _init_process_group(device_arg: str, init_method: str):
+    """The default process group for ``--data-parallel``: under a launcher's
+    ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` environment one rank of it,
+    else a one-rank group in this process. NCCL on ``cuda:LOCAL_RANK``,
+    gloo with ``--device cpu``. Returns this rank's device."""
+    env = os.environ
+    launched = "RANK" in env and "WORLD_SIZE" in env
+    rank = int(env["RANK"]) if launched else 0
+    world = int(env["WORLD_SIZE"]) if launched else 1
+    local = int(env.get("LOCAL_RANK", 0)) if launched else 0
+    if torch.device(device_arg).type == "cpu":
+        device, backend, kw = resolve_device("cpu"), "gloo", {}
+    else:
+        device = resolve_device(f"cuda:{local}")
+        torch.cuda.set_device(device)
+        backend, kw = "nccl", {"device_id": device}
+    if launched:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world, **kw)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    return device
+
+
+def _serve(args, device, sharded: bool) -> None:
+    leader = not sharded or dist.get_rank() == 0
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = cfg.with_(objective="diffusion" if args.mode == "diffusion" else "ar")
     params = T.init_params(cfg, 0, device)
-    if args.ckpt_dir:
+    if args.ckpt_dir and leader:    # a sharded engine broadcasts rank 0's
         params, _ = CKPT.restore(args.ckpt_dir, params)
         print(f"restored params from {args.ckpt_dir}")
 
     if args.mode == "diffusion":
+        mesh = None
+        if sharded:
+            from .mesh import make_request_mesh
+            mesh = make_request_mesh()
+            if leader:
+                print(f"request-parallel mesh: {dist.get_world_size()} devices on "
+                      "axis 'data' (group sizes round up to multiples)")
         buckets = tuple(int(e) for e in args.seq_len_buckets.split(",")) \
             if args.seq_len_buckets else None
         retire = None
@@ -304,73 +362,22 @@ def main(argv=None):
             retire = RetirePolicy(tol=args.early_exit_tol,
                                   min_k=args.early_exit_min_k,
                                   norm=args.early_exit_norm)
-            print(f"early exit on: {retire}")
+            if leader:
+                print(f"early exit on: {retire}")
         eng = DiffusionServeEngine(params, cfg,
                                    steps_per_tick=args.steps_per_tick,
                                    compaction=not args.no_compaction,
                                    join=not args.no_join,
-                                   seq_len_buckets=buckets,
+                                   seq_len_buckets=buckets, mesh=mesh,
                                    enforce_deadlines=args.enforce_deadlines,
                                    retire=retire, device=device)
-        if args.trace_annotate:
-            eng.tracer = Tracer(eng.metrics, annotate=True)
-        exporter = NdjsonExporter(args.metrics_ndjson,
-                                  extra={"arch": args.arch}) \
-            if args.metrics_ndjson else None
-        if args.transport == "http":
-            with ServeDriver(eng, max_pending=args.max_pending) as driver:
-                server = make_http_server(driver, args.port)
-                host, port = server.server_address
-                print(f"serving DEIS on http://{host}:{port}/v1/generate "
-                      "(POST JSON; GET /metrics for Prometheus text; "
-                      "Ctrl-C to stop)")
-                stop_snap = threading.Event()
-                if exporter is not None:
-                    def _snap_loop():
-                        while not stop_snap.wait(args.metrics_interval):
-                            exporter.write(eng.metrics)
-                    threading.Thread(target=_snap_loop, daemon=True,
-                                     name="metrics-ndjson").start()
-                try:
-                    server.serve_forever()
-                except KeyboardInterrupt:
-                    pass
-                finally:
-                    stop_snap.set()
-                    server.shutdown()
-                    if exporter is not None:
-                        exporter.write(eng.metrics)   # final snapshot
-                        exporter.close()
+        if not leader:
+            eng.follow()
             return
-        if args.transport == "driver":
-            with ServeDriver(eng, max_pending=args.max_pending) as driver:
-                results = asyncio.run(
-                    _driver_demo(driver, args.requests, args.seq_len))
-                print(f"served {len(results)} requests; "
-                      f"stats={driver.stats()}")
-            if exporter is not None:
-                exporter.write(eng.metrics)
-                exporter.close()
-            return
-        reqs = [Request(uid=i, seq_len=args.seq_len, nfe=args.nfe,
-                        solver=args.solver, seed=i) for i in range(args.requests)]
-        results = eng.serve(
-            reqs, on_step=lambda e: print(
-                f"  step {e.k}/{e.n_steps} for uids {e.uids}"))
-        for r in results[:4]:
-            print(f"req {r.uid}: nfe={r.nfe} solve={r.latency_s:.2f}s "
-                  f"compile={r.compile_s:.2f}s early_exit={r.early_exit} "
-                  f"tokens[:10]={r.tokens[:10]}")
-        print(f"served {len(results)} requests")
-        if retire is not None:
-            m = eng.metrics
-            print(f"early exits: "
-                  f"{int(m.get('serve_early_exit_total').value)}/"
-                  f"{len(results)}, saved NFEs: "
-                  f"{int(m.get('serve_saved_nfe_total').value)}")
-        if exporter is not None:
-            exporter.write(eng.metrics)
-            exporter.close()
+        try:
+            _serve_diffusion(args, cfg, eng, retire)
+        finally:
+            eng.close()
     else:
         eng = ARServeEngine(params, cfg, max_len=args.seq_len + args.max_new,
                             device=device)
@@ -381,6 +388,69 @@ def main(argv=None):
         for r in results[:4]:
             print(f"req {r.uid}: latency={r.latency_s:.2f}s tokens={r.tokens[:10]}")
         print(f"served {len(results)} requests")
+
+
+def _serve_diffusion(args, cfg, eng, retire) -> None:
+    """The diffusion transports over ``eng`` (on the leader under a mesh)."""
+    if args.trace_annotate:
+        eng.tracer = Tracer(eng.metrics, annotate=True)
+    exporter = NdjsonExporter(args.metrics_ndjson,
+                              extra={"arch": args.arch}) \
+        if args.metrics_ndjson else None
+    if args.transport == "http":
+        with ServeDriver(eng, max_pending=args.max_pending) as driver:
+            server = make_http_server(driver, args.port)
+            host, port = server.server_address
+            print(f"serving DEIS on http://{host}:{port}/v1/generate "
+                  "(POST JSON; GET /metrics for Prometheus text; "
+                  "Ctrl-C to stop)")
+            stop_snap = threading.Event()
+            if exporter is not None:
+                def _snap_loop():
+                    while not stop_snap.wait(args.metrics_interval):
+                        exporter.write(eng.metrics)
+                threading.Thread(target=_snap_loop, daemon=True,
+                                 name="metrics-ndjson").start()
+            try:
+                server.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                stop_snap.set()
+                server.shutdown()
+                if exporter is not None:
+                    exporter.write(eng.metrics)   # final snapshot
+                    exporter.close()
+        return
+    if args.transport == "driver":
+        with ServeDriver(eng, max_pending=args.max_pending) as driver:
+            results = asyncio.run(
+                _driver_demo(driver, args.requests, args.seq_len))
+            print(f"served {len(results)} requests; "
+                  f"stats={driver.stats()}")
+        if exporter is not None:
+            exporter.write(eng.metrics)
+            exporter.close()
+        return
+    reqs = [Request(uid=i, seq_len=args.seq_len, nfe=args.nfe,
+                    solver=args.solver, seed=i) for i in range(args.requests)]
+    results = eng.serve(
+        reqs, on_step=lambda e: print(
+            f"  step {e.k}/{e.n_steps} for uids {e.uids}"))
+    for r in results[:4]:
+        print(f"req {r.uid}: nfe={r.nfe} solve={r.latency_s:.2f}s "
+              f"compile={r.compile_s:.2f}s early_exit={r.early_exit} "
+              f"tokens[:10]={r.tokens[:10]}")
+    print(f"served {len(results)} requests")
+    if retire is not None:
+        m = eng.metrics
+        print(f"early exits: "
+              f"{int(m.get('serve_early_exit_total').value)}/"
+              f"{len(results)}, saved NFEs: "
+              f"{int(m.get('serve_saved_nfe_total').value)}")
+    if exporter is not None:
+        exporter.write(eng.metrics)
+        exporter.close()
 
 
 if __name__ == "__main__":

@@ -39,9 +39,20 @@ without eta) are caught on the scheduler thread and delivered to the ONE
 offending request's future as the original exception; other in-flight
 requests are unaffected (contrast with the synchronous ``serve()``'s
 all-or-nothing batch validation). A tick that raises fails every in-flight
-request with the error, resets the engine and keeps serving (fail open);
-``driver_crash_total`` counts such ticks, so a caller that must not serve
-through a broken device can check it.
+request with the error; ``driver_crash_total`` counts such ticks. Without
+a mesh the driver then resets the engine and keeps serving (fail open), so
+a caller that must not serve through a broken device checks the counter.
+With a mesh it fails closed: the engine has destroyed the process groups
+(so every follower's ``follow()`` raises), the scheduler thread ends, and
+every later submission fails at once with a ``RuntimeError``.
+
+Request-axis mesh: with a sharded engine (``DiffusionServeEngine(mesh=)``)
+the driver runs on the mesh's rank 0, whose scheduler thread is the only
+caller of collectives (each ``tick`` broadcasts its inputs to the other
+ranks, which run ``engine.follow()``); transport threads never call one.
+While idle the scheduler sends a heartbeat every ``HEARTBEAT_S`` (a quarter
+of the control group's timeout), so no follower waits in a broadcast for
+as long as that timeout.
 
 Backpressure contract: with ``max_pending=n`` the driver bounds its
 in-flight set (submitted but unfinished requests). The (n+1)-th concurrent
@@ -62,8 +73,12 @@ from typing import Iterator, Optional
 
 import torch
 
+from ..launch.mesh import CONTROL_TIMEOUT
 from .engine import (Cancelled, DeadlineExceeded, DiffusionServeEngine,
                      Request, Result, StepEvent)
+
+# an idle leader's beat to its followers, well inside their wait's timeout
+HEARTBEAT_S = CONTROL_TIMEOUT.total_seconds() / 4
 
 _CLOSE = object()   # stream sentinel: no more events
 _CANCEL = object()  # inbox sentinel: (sentinel, uid) cancellation order
@@ -209,6 +224,8 @@ class ServeDriver:
         self.stream_decode = stream_decode
         self.idle_wait_s = idle_wait_s
         self.max_pending = max_pending
+        # repro: allow[RL003] set once by the scheduler thread when a mesh engine fails closed (the ownership table predates the port)
+        self._failed: Optional[BaseException] = None
         self._inbox: queue.Queue = queue.Queue()
         self._streams: dict[int, ServeStream] = {}
         self._lock = threading.Lock()
@@ -237,7 +254,8 @@ class ServeDriver:
         ``submit()`` calls would otherwise both see ``_thread is None`` and
         start two scheduler threads over a single-threaded engine."""
         with self._lock:
-            if self._thread is None or not self._thread.is_alive():
+            if self._failed is None and (self._thread is None
+                                         or not self._thread.is_alive()):
                 self._stop.clear()
                 self._thread = threading.Thread(
                     target=self._run, name="deis-serve-driver", daemon=True)
@@ -279,6 +297,9 @@ class ServeDriver:
         request never touches the scheduler)."""
         stream = ServeStream(request.uid)
         with self._lock:
+            if self._failed is not None:
+                stream._fail(self._closed_error())
+                return stream
             if request.uid in self._streams:
                 raise ValueError(f"request uid {request.uid} is already "
                                  "in flight")
@@ -404,25 +425,38 @@ class ServeDriver:
                 tokens=tok, row_steps=None, row_k=None, row_seq_lens=None,
                 row_err=err))
 
-    def _crash(self, exc: BaseException) -> None:
+    def _closed_error(self) -> RuntimeError:
+        err = RuntimeError("the driver stopped: a tick failed on the mesh "
+                           f"({self._failed!r}) and its process groups are gone")
+        err.__cause__ = self._failed
+        return err
+
+    def _crash(self, exc: BaseException) -> bool:
         """A tick blew up: the engine's in-flight state is unreliable, so
         fail EVERY in-flight request with the error (no silent thread death,
         no futures stranded forever) and reset the scheduler queues --
         including requests still in the inbox, which are drained and failed
         too (their streams are already registered; leaving them queued would
-        resubmit them against their already-failed futures). The driver
-        keeps serving later submissions."""
+        resubmit them against their already-failed futures). Without a mesh
+        the engine is reset and the driver keeps serving later submissions;
+        with one it has failed closed, and so does the driver (returns True:
+        the scheduler stops)."""
         self._m_crash.inc()
+        closed = self.engine.mesh is not None
         with self._lock:
             streams, self._streams = self._streams, {}
+            if closed:
+                self._failed = exc
         while True:
             try:
                 self._inbox.get_nowait()
             except queue.Empty:
                 break
-        self.engine.reset()
+        if not closed:
+            self.engine.reset()
         for stream in streams.values():
             stream._fail(exc)
+        return closed
 
     def _run(self) -> None:
         device = self.engine.device
@@ -432,18 +466,26 @@ class ServeDriver:
             self._loop()
 
     def _loop(self) -> None:
+        last_beat = time.perf_counter()
         while True:
             busy = self.engine.busy
             self._drain_inbox(block=not busy)
-            if self.engine.busy:
-                t0 = time.perf_counter()
-                try:
+            try:
+                if self.engine.mesh is not None and not self.engine.busy and \
+                        time.perf_counter() - last_beat > HEARTBEAT_S:
+                    self.engine.heartbeat()
+                    last_beat = time.perf_counter()
+                results = None
+                if self.engine.busy:
+                    last_beat = t0 = time.perf_counter()
                     results = self.engine.tick(
                         on_step=self._fanout,
                         stream_decode=self.stream_decode)
-                except Exception as e:   # noqa: BLE001 - fail open, keep serving
-                    self._crash(e)
-                    continue
+            except Exception as e:   # noqa: BLE001 - fail open, or closed on a mesh
+                if self._crash(e):
+                    return
+                continue
+            if results is not None:
                 for res in results:
                     with self._lock:
                         stream = self._streams.pop(res.uid, None)

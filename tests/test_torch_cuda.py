@@ -18,7 +18,11 @@ The training slice's card tests: a float32 train step against the CPU
 update of the same grads rtol 1e-5, atol 1e-7), AdamW on CUDA tensors
 against the CPU (rtol 1e-6, atol 1e-7), and the MLP score net trained on
 the card and sampled by a fused tab3 plan through K1 at x (1, 1024, 2)
-(within 1e-5 of the unfused solve)."""
+(within 1e-5 of the unfused solve).
+
+The request-axis slice's card tests: the sharded engine on a one-rank NCCL
+group bitwise equal to the unsharded engine on the card, and expert-parallel
+MoE there within the reference's bounds (2e-4 output, 1e-3 load-balance)."""
 import sys
 from pathlib import Path
 
@@ -275,3 +279,90 @@ def test_cuda_score_net_samples_through_k1(cuda):
         plain = sample(plan, eps, x_T)
     assert fused.shape == (1024, 2) and torch.isfinite(fused).all()
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def one_rank_nccl(cuda, tmp_path):
+    """A one-rank NCCL default group from a file store (the engine adds its
+    gloo control group) and the request mesh over it; torn down after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_request_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield make_request_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_sharded_engine_one_rank_bitwise(one_rank_nccl):
+    """The request-axis engine on a one-rank NCCL group, reduced float32
+    gemma-2b on the card: a ragged mix with a join, compaction, early exit
+    and a stochastic family gives the unsharded engine's results bitwise
+    (at one rank the local shapes are the unsharded ones), K1 launches once
+    an ab group step, and a warm replay adds no executor."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import RetirePolicy
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import DiffusionServeEngine, Request
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    params = init_params(cfg, 0, "cuda")
+    reqs = [Request(uid=i, seq_len=16, nfe=[3, 7][i % 2], solver="ddim", seed=i)
+            for i in range(6)]
+    reqs += [Request(uid=10 + i, seq_len=12, nfe=6, solver=s, seed=20 + i)
+             for i, s in enumerate(["tab3", "seeds2", "tab2"])]
+    kw = dict(max_group=4, seq_len_buckets=(16,), retire=RetirePolicy(tol=1.0, min_k=2),
+              device="cuda")
+
+    def drive(eng):
+        out, ab = [], [0]
+        on_step = lambda ev: ab.__setitem__(0, ab[0] + 1)   # every family here is ab
+        for r in reqs[:5]:
+            eng.submit(r)
+        for _ in range(3):
+            out += eng.tick(on_step=on_step)
+        for r in reqs[5:]:
+            eng.submit(r)
+        while eng.busy:
+            out += eng.tick(on_step=on_step)
+        return {r.uid: r for r in out}, ab[0]
+
+    want, _ = drive(DiffusionServeEngine(params, cfg, **kw))
+    eng = DiffusionServeEngine(params, cfg, mesh=one_rank_nccl, **kw)
+    before = K.fused_ab_step.launches
+    got, ab_steps = drive(eng)
+    assert K.fused_ab_step.launches - before == ab_steps > 0
+    assert sorted(got) == sorted(want)
+    for uid, w in want.items():
+        g = got[uid]
+        assert torch.equal(torch.as_tensor(g.tokens), torch.as_tensor(w.tokens)), uid
+        assert (g.nfe, g.early_exit, g.final_err) == (w.nfe, w.early_exit, w.final_err)
+    assert eng.joined_requests >= 1
+    n = eng.num_executors
+    again, _ = drive(eng)
+    assert eng.num_executors == n
+    assert all(torch.equal(torch.as_tensor(again[u].tokens), torch.as_tensor(want[u].tokens))
+               for u in want)
+    eng.close()
+
+
+def test_cuda_expert_parallel_one_rank(one_rank_nccl):
+    """Expert-parallel MoE on a one-rank NCCL group, reduced float32 mixtral
+    on the card, capacity_factor 100: within the reference's bounds of
+    ``layers.moe`` (2e-4 on the output, 1e-3 on the load-balance loss)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.sharding.expert_parallel import moe_expert_parallel
+    cfg = get_config("mixtral_8x7b").reduced().with_(objective="ar")
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=100.0),
+                    moe_dispatch="gather")
+    params = L.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg, torch.float32,
+                        "cuda")
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    out, aux = moe_expert_parallel(params, cfg, x, one_rank_nccl)
+    want, aux_w = L.moe(params, cfg, x)
+    assert (out - want).abs().max().item() < 2e-4
+    assert abs(aux["moe_lb"].item() - aux_w["moe_lb"].item()) < 1e-3

@@ -2,8 +2,10 @@
 CPU (``--device cpu --reduced``): the sync and driver transports, the AR
 mode on every ported arch, ``--ckpt-dir`` (a checkpoint the JAX package
 wrote), ``--metrics-ndjson`` and the scheduler flags; ``--data-parallel``
-raises, and without ``--device cpu`` the launcher asks for the card (no
-CPU fallback). The HTTP transport's routes are held in
+over 2 gloo ranks (a launcher's ``RANK`` / ``WORLD_SIZE`` environment) and
+as a one-rank group without that environment, each giving the tokens of a
+run without the flag; and without ``--device cpu`` the launcher asks for
+the card (no CPU fallback). The HTTP transport's routes are held in
 ``tests/test_torch_driver.py``."""
 import json
 import re
@@ -123,9 +125,71 @@ def test_ckpt_dir_tuple_checkpoint_raises(tmp_path):
         main(["--arch", "gemma_2b", *CPU, "--requests", "1", "--ckpt-dir", str(tmp_path)])
 
 
-def test_data_parallel_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        main(["--arch", "gemma_2b", *CPU, "--data-parallel"])
+SYNC = ["--arch", "gemma_2b", *CPU, "--requests", "3", "--nfe", "4", "--seq-len", "8",
+        "--solver", "tab2"]
+MESH_LINE = "request-parallel mesh: {} devices on axis 'data'"
+
+
+def _token_lines(out):
+    return [ln for ln in out.splitlines() if ln.startswith("req ") and "tokens" in ln]
+
+
+def test_data_parallel_without_launcher_env_is_one_rank(capsys, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    main(SYNC)
+    plain = capsys.readouterr().out
+    main(SYNC + ["--data-parallel"])
+    out = capsys.readouterr().out
+    assert MESH_LINE.format(1) in out and "served 3 requests" in out
+    assert not torch.distributed.is_initialized()      # the launcher tore its group down
+    strip = lambda lines: [re.sub(r"solve=\S+ ", "", ln) for ln in lines]
+    assert strip(_token_lines(out)) == strip(_token_lines(plain)) and len(_token_lines(out)) == 3
+
+
+DRIVER = ["--arch", "gemma_2b", *CPU, "--transport", "driver", "--requests", "4",
+          "--seq-len", "8"]
+
+# both transports in one pair of processes, one process group after the
+# other (each run of the launcher makes and destroys its own)
+_RANK_CHILD = r'''
+import json, os, sys
+rank, world, store = sys.argv[1:4]
+os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch.serve import main
+for name, args in json.loads(sys.argv[4]).items():
+    print(f"=== {name}", flush=True)
+    main(args + ["--data-parallel", "--dist-init-method", f"file://{store}_{name}"])
+    sys.stdout.flush()
+'''
+_RANK_LOGS: dict = {}
+
+
+@pytest.mark.parametrize("transport", ["sync", "driver"])
+def test_data_parallel_two_gloo_ranks(tmp_path_factory, capsys, transport):
+    """``--device cpu --reduced --data-parallel`` as ranks 0 and 1 of a gloo
+    group: rank 0 prints the mesh line and the results (the sync run's
+    tokens are a run's without the flag), rank 1 prints nothing."""
+    from test_torch_sharded_serving import spawn
+    if not _RANK_LOGS:
+        logs = spawn(_RANK_CHILD, 2, tmp_path_factory.mktemp("dp"), timeout=180,
+                     args=(json.dumps({"sync": SYNC, "driver": DRIVER}),))
+        for r, log in enumerate(logs):
+            _, sync, driver = log.split("=== ")
+            _RANK_LOGS[r] = {"sync": sync, "driver": driver}
+    logs = [_RANK_LOGS[r][transport] for r in (0, 1)]
+    assert MESH_LINE.format(2) in logs[0] and "request-parallel" not in logs[1]
+    assert "served" not in logs[1]
+    if transport == "driver":
+        assert "served 4 requests" in logs[0] and "'completed': 4" in logs[0]
+        return
+    main(SYNC)
+    plain = capsys.readouterr().out
+    strip = lambda lines: [re.sub(r"solve=\S+ ", "", ln) for ln in lines]
+    assert strip(_token_lines(logs[0])) == strip(_token_lines(plain))
+    assert len(_token_lines(plain)) == 3
 
 
 def test_without_a_card_cuda_is_refused():
