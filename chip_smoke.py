@@ -147,6 +147,27 @@ Phases (any failure raises and the script exits non-zero):
    the mesh line and the unsharded engine's tokens; and the sharded
    engine over 2 gloo ranks on this machine's CPU (reduced gemma-2b,
    subprocesses) must give the unsharded CPU engine's tokens bitwise.
+   Once the train CLI has exited (the two would not fit the card
+   together), ``torchrun --standalone --nproc_per_node=1 -m
+   repro_torch.launch.train --arch gemma_2b --model-parallel 1 --steps 3
+   --batch 4 --seq 256`` must exit 0 with the one-rank mesh line and the
+   train CLI's step lines; and ``torchrun --nproc_per_node=4 ... --device
+   cpu --reduced --model-parallel 2`` (a (2, 2) mesh of gloo ranks on this
+   machine's CPU) must print losses and grad norms within one printed digit
+   of the unsharded CPU launcher's.
+14a. Sharded training (after gemma's AR phase, on its weights, which it
+   leaves as they were): 3 diffusion steps at batch 4, seq 256 of the
+   unsharded step on a copy of the weights, then of the model-parallel
+   step on a one-rank NCCL host mesh {'data': 1, 'model': 1} (params,
+   moments and batches as DTensors), then the same with the ZeRO-3
+   saved-tensor hooks forced on (their host cost alone: no placement
+   gathers, so the step installs none itself), then with ``fsdp`` (each
+   layer's weights gathered for it and again in the backward: the port's
+   ZeRO-3): losses, grad norms and the params after the last step bitwise
+   equal to the unsharded run's (at one rank the local shapes, and so the
+   products, are the unsharded ones; the largest differences are
+   printed); ms per step, tokens/s, device busy and idle share, the
+   optimizer's device time and peak memory of each.
 14. Training (after gemma's AR phase, on its weights, which it then
    changes): 5 train steps of the diffusion objective, then 3 of the ar
    objective, each from a fresh AdamW state, at batch 4, seq 256 of the
@@ -1958,27 +1979,49 @@ def _train_parts_us(step_fn, n):
     return parts, busy
 
 
-def _train_run(device, cfg, params, batch_n, seq, steps, opt, tag, gen_seed=1):
+def _train_run(device, cfg, params, batch_n, seq, steps, opt, tag, gen_seed=1, mesh=None,
+               fsdp=False, hooks=False, keep=False):
     """``steps`` train steps of ``make_train_step(cfg, opt)`` from a fresh
     optimizer state on the Markov corpus, each step timed with a device
     sync; then one more step under torch.profiler (device time by part).
     No kernel may launch (the train step runs the plain route, as the
-    reference's). Returns the losses and the timings."""
+    reference's). ``mesh``: the sharded step, params placed by
+    ``param_specs`` (``fsdp``), the moments as their params, each batch by
+    ``batch_specs``; ``hooks``: every step under the ZeRO-3 saved-tensor
+    hooks (``tensor_parallel.regather_saved``) whatever it gathers. ``keep``:
+    a copy of the params after the last timed step (before the profiled
+    one). Returns the losses, grad norms and timings."""
     import statistics
-    from repro_torch.data.pipeline import MarkovTextSource, make_batch
+    from repro_torch.data.pipeline import MarkovTextSource, device_put_sharded, make_batch
+    from repro_torch.sharding import rules as R
+    from repro_torch.sharding import tensor_parallel as TP
     from repro_torch.training.steps import make_train_step
     if device.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30 if device.type == "cuda" else float("nan")
+    if mesh is not None:
+        params = R.device_put(params, R.to_shardings(R.param_specs(params, mesh, fsdp=fsdp),
+                                                     mesh))
     state = opt.init(params)
     step = make_train_step(cfg, opt)
+    if hooks:
+        plain_step = step
+
+        def step(*a):
+            with TP.regather_saved():
+                return plain_step(*a)
     src = MarkovTextSource(cfg.vocab_size, 0)
     gen = torch.Generator(device=device).manual_seed(gen_seed)
     losses, gnorms, times = [], [], []
     _reset_counts()
     for i in range(steps):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in make_batch(cfg, src, i, batch_n, seq).items()}
+        host = make_batch(cfg, src, i, batch_n, seq)
+        if mesh is None:
+            batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        else:
+            batch = device_put_sharded(host, R.to_shardings(R.batch_specs(host, mesh), mesh),
+                                       device)
         _sync(device)
         t0 = time.perf_counter()
         params, state, m = step(params, state, batch, gen)
@@ -1997,10 +2040,15 @@ def _train_run(device, cfg, params, batch_n, seq, steps, opt, tag, gen_seed=1):
             else float("nan"))
     line = (f"train {tag}: {steps} steps at batch {batch_n}, seq {seq}: median step "
             f"{med:.3f} ms (first {times[0] * 1e3:.1f} ms), "
-            f"{batch_n * seq / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB; losses "
+            f"{batch_n * seq / med * 1e3:.1f} tokens/s, peak memory {peak:.2f} GiB "
+            f"({held:.2f} GiB held before the run); losses "
             + " ".join(f"{v:.4f}" for v in losses) + "; grad norms "
             + " ".join(f"{v:.3f}" for v in gnorms))
-    out = dict(losses=losses, ms=med, peak=peak, state=state)
+    out = dict(losses=losses, gnorms=gnorms, ms=med, peak=peak, state=state)
+    if keep:
+        from repro_torch.training.optimizer import tree_leaves
+        out["after"] = [(p.full_tensor() if mesh is not None else p).clone()
+                        for p in tree_leaves(params)]
     if device.type == "cuda":
         parts, busy = _train_parts_us(lambda: step(params, state, batch, gen), 1)
         line += (f"; device time per step (torch.profiler): busy {busy / 1e3:.3f} of "
@@ -2009,6 +2057,60 @@ def _train_run(device, cfg, params, batch_n, seq, steps, opt, tag, gen_seed=1):
         out.update(parts=parts, busy=busy)
     print(line)
     return out
+
+
+def phase_sharded_train(device, cfg, params, reduced, steps=3):
+    """The model-parallel train step at the model's width on a one-rank
+    (NCCL on the card) host mesh {'data': 1, 'model': 1}: params, moments
+    and batches as DTensors, every product on the local shards. First the
+    unsharded step (``phase_train``'s: the same init, corpus and draws) on
+    a copy of the weights, then the sharded step, the same under the
+    ZeRO-3 saved-tensor hooks (forced on: their host cost), then the
+    sharded step with ``fsdp`` (the port's ZeRO-3), each ``steps``
+    diffusion steps at batch 4, seq 256 from the same weights: the losses
+    and grad norms per step and the params after the last bitwise equal
+    to the unsharded run's (largest differences printed); ms per
+    step, tokens/s, device busy and idle share and the optimizer's device
+    time (torch.profiler), peak memory. The weights are left as they were."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import tree_map
+    from repro_torch.sharding.rules import axis_sizes
+    from repro_torch.training.optimizer import AdamW, cosine_schedule
+    batch_n, seq = (2, 16) if reduced else (4, 256)
+    cfg = cfg.with_(objective="diffusion")
+    opt = lambda: AdamW(cosine_schedule(TRAIN_LR, 1, 10))
+    base = _train_run(device, cfg, tree_map(torch.clone, params), batch_n, seq, steps, opt(),
+                      f"{cfg.name} unsharded (the sharded runs' reference)", keep=True)
+    want = base.pop("after")
+    del base["state"]
+    runs = {"unsharded": base}
+    with _one_rank_group(device):
+        mesh = make_host_mesh(model=1)
+        for tag, kw in (("sharded", {}), ("sharded hooks", dict(hooks=True)),
+                        ("sharded fsdp", dict(fsdp=True))):
+            run = _train_run(device, cfg, params, batch_n, seq, steps, opt(),
+                             f"{cfg.name} {tag} on {axis_sizes(mesh)}", mesh=mesh, keep=True,
+                             **kw)
+            got = run.pop("after")
+            del run["state"]
+            d_loss = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"]))
+            d_gnorm = max(abs(a - b) / abs(b) for a, b in zip(run["gnorms"], base["gnorms"]))
+            d_param = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            bitwise = run["losses"] == base["losses"] and run["gnorms"] == base["gnorms"] \
+                and all(torch.equal(a, b) for a, b in zip(got, want))
+            del got
+            print(f"sharded train {tag}: against the unsharded run, losses rel {d_loss:.3e}, "
+                  f"grad norms rel {d_gnorm:.3e}, params after step {steps} max abs "
+                  f"{d_param:.3e} ({'bitwise' if bitwise else 'not bitwise'}); "
+                  f"{run['ms']:.3f} ms a step against {base['ms']:.3f} "
+                  f"({run['ms'] / base['ms']:.3f}x)")
+            if not bitwise:     # one rank: the unsharded local shapes and products
+                raise AssertionError(f"sharded train {tag} differs from the unsharded step")
+            runs[tag] = run
+    del want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return runs
 
 
 def phase_train(device, cfg, params, reduced, n_diffusion=5, n_ar=3):
@@ -2267,35 +2369,122 @@ def _cld_card_vs_cpu(device):
           f"sample against the reference {float(torch.sqrt(((s_cpu - r_cpu) ** 2).mean())):.4f}")
 
 
-def start_train_cli(device, reduced):
+def _train_cli_cmd(device, reduced, sharded=False):
     """``python -m repro_torch.launch.train --arch gemma_2b --steps 3 --batch 4
-    --seq 256`` as a subprocess (full width on the card)."""
+    --seq 256`` (full width on the card); ``sharded``: the same under
+    ``torchrun --standalone --nproc_per_node=1`` with ``--model-parallel 1``."""
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma_2b",
            "--steps", "3"]
+    if sharded:
+        cmd[1:3] = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+                    "-m", "repro_torch.launch.train"]
+        cmd += ["--model-parallel", "1"]
     cmd += ["--batch", "2", "--seq", "16"] if reduced else ["--batch", "4", "--seq", "256"]
     if device.type != "cuda":
         cmd += ["--device", "cpu"]
     if reduced:
         cmd += ["--reduced"]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    return cmd
+
+
+def _popen(cmd, **env):
+    env = dict(os.environ, **env, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     print("cli: " + " ".join(cmd[1:]))
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            env=env), time.perf_counter()
+                            env=env)
 
 
-def finish_train_cli(proc, t0):
-    """Wait for the train launcher: exit 0, a finite loss on each of its 3
-    step lines, and its summary line."""
-    out, err = proc.communicate(timeout=600)
+def start_train_clis(device, reduced):
+    """The train launcher as a subprocess; once it has exited (the two
+    would not fit the card together), the same run under torchrun on a
+    one-rank mesh (the sharded launcher), from a thread."""
+    import threading
+    t0 = time.perf_counter()
+    first = _popen(_train_cli_cmd(device, reduced))
+    got = {"procs": [first]}
+    # torchrun would set one CPU thread; the same count as this process keeps
+    # the CPU rehearsal's summation order (and so its loss lines) the same
+    threads = str(torch.get_num_threads())
+
+    def chain():
+        got["first"] = first.communicate(timeout=600) + (time.perf_counter() - t0,)
+        got["t1"] = time.perf_counter()
+        got["procs"].append(_popen(_train_cli_cmd(device, reduced, sharded=True),
+                                   OMP_NUM_THREADS=threads))
+    thread = threading.Thread(target=chain, daemon=True)
+    thread.start()
+    return thread, got
+
+
+def _step_lines(out):
+    return re.findall(r"^(step +\d+ loss=\S+ gnorm=\S+)", out, re.M)
+
+
+def finish_train_clis(thread, got):
+    """The train launcher: exit 0, a finite loss on each of its 3 step
+    lines, and its summary line. The sharded launcher after it: exit 0, the
+    one-rank mesh line, and the same step lines (loss and grad norm as
+    printed)."""
+    thread.join(timeout=660)
+    out, err, secs = got["first"]
+    first = got["procs"][0]
     losses = [float(v) for v in re.findall(r"^step +\d+ loss=(\S+)", out, re.M)]
     done = [ln for ln in out.splitlines() if ln.startswith("trained ")]
-    if proc.returncode != 0 or len(losses) != 3 or not np.isfinite(losses).all() or not done:
-        raise AssertionError(f"the train launcher exited {proc.returncode}:\n{out[-2000:]}\n"
+    if first.returncode != 0 or len(losses) != 3 or not np.isfinite(losses).all() or not done:
+        raise AssertionError(f"the train launcher exited {first.returncode}:\n{out[-2000:]}\n"
                              f"{err[-2000:]}")
-    print(f"cli: train exit 0 after {time.perf_counter() - t0:.1f} s (process start, init "
-          f"and 3 steps, beside the card-vs-cpu phase and the serving cli); losses "
-          f"{losses}; {done[-1]}")
+    print(f"cli: train exit 0 after {secs:.1f} s (process start, init and 3 steps, beside "
+          f"the card-vs-cpu phase and the serving cli); losses {losses}; {done[-1]}")
+    proc = got["procs"][1]
+    out2, err2 = proc.communicate(timeout=600)
+    mesh = "mesh={'data': 1, 'model': 1}"
+    done2 = [ln for ln in out2.splitlines() if ln.startswith("trained ")]
+    if proc.returncode != 0 or mesh not in out2 or not done2 or \
+            _step_lines(out2) != _step_lines(out):
+        raise AssertionError(f"the sharded train launcher exited {proc.returncode} (step lines "
+                             f"{_step_lines(out2)} vs {_step_lines(out)}):\n{out2[-2000:]}\n"
+                             f"{err2[-2000:]}")
+    print(f"cli: torchrun train --model-parallel 1 exit 0 after "
+          f"{time.perf_counter() - got['t1']:.1f} s (after the train cli); {mesh}; its 3 "
+          f"step lines equal to the unsharded launcher's; {done2[-1]}")
+
+
+CPU_TRAIN_TOL = {"loss": 1.5e-4, "gnorm": 1.5e-3}   # one unit of the printed digit
+
+
+def start_cpu_train_ranks():
+    """``torchrun --standalone --nproc_per_node=4 -m repro_torch.launch.train
+    --arch gemma_2b --device cpu --reduced --model-parallel 2`` (a (2, 2)
+    mesh of gloo ranks on this machine's CPU) and the unsharded CPU
+    launcher with the same flags, as subprocesses."""
+    flags = ["--arch", "gemma_2b", "--device", "cpu", "--reduced", "--steps", "3",
+             "--batch", "4", "--seq", "16"]
+    env = dict(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = [_popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node=4", "-m", "repro_torch.launch.train", *flags,
+                     "--model-parallel", "2"], **env),
+             _popen([sys.executable, "-m", "repro_torch.launch.train", *flags], **env)]
+    atexit.register(_stop, procs)
+    return procs, time.perf_counter()
+
+
+def finish_cpu_train_ranks(procs, t0):
+    """Both exit 0; the sharded run prints the (2, 2) mesh and step lines
+    within one printed digit of the unsharded run's."""
+    (sharded, out, err), (_, want, err_w) = [(p,) + p.communicate(timeout=600) for p in procs]
+    num = lambda text: [tuple(map(float, m)) for m in
+                        re.findall(r"^step +\d+ loss=(\S+) gnorm=(\S+)", text, re.M)]
+    got, ref = num(out), num(want)
+    ok = len(got) == len(ref) == 3 and all(
+        abs(a[0] - b[0]) <= CPU_TRAIN_TOL["loss"] and abs(a[1] - b[1]) <= CPU_TRAIN_TOL["gnorm"]
+        for a, b in zip(got, ref))
+    if any(p.returncode for p in procs) or "mesh={'data': 2, 'model': 2}" not in out or not ok:
+        raise AssertionError(f"the CPU train ranks: {got} vs {ref}:\n{out[-2000:]}\n"
+                             f"{err[-3000:]}\n{err_w[-1000:]}")
+    print(f"cpu train ranks: 4 gloo ranks on a (2, 2) mesh (torch {torch.__version__}), "
+          f"losses and grad norms {got} within {CPU_TRAIN_TOL} of the unsharded CPU "
+          f"launcher's {ref}; {time.perf_counter() - t0:.1f} s")
 
 
 def phase_card_vs_cpu(device):
@@ -2494,6 +2683,8 @@ def main(argv=None) -> int:
     lap("one-shot gemma")
     phase_ar(device, cfg, params, args.reduced)
     lap("ar gemma")
+    phase_sharded_train(device, cfg, params, args.reduced)
+    lap("sharded train gemma")
     phase_train(device, cfg, params, args.reduced)    # trains these weights: last on gemma
     lap("train gemma")
     del params
@@ -2546,18 +2737,22 @@ def main(argv=None) -> int:
     # the CPU ranks start here, beside the card-vs-cpu phase: earlier they
     # would share the host with the timed serving phases
     cpu_ranks = start_cpu_ranks()
-    clis = [start_cli(device, args.reduced), start_train_cli(device, args.reduced),
-            start_dp_cli(device, args.reduced)]
+    cpu_train = start_cpu_train_ranks()
+    clis = [start_cli(device, args.reduced), start_dp_cli(device, args.reduced)]
+    train_clis = start_train_clis(device, args.reduced)
     try:
         f32_path = phase_card_vs_cpu(device)
         lap("card vs cpu")
         finish_cli(*clis[0])
-        finish_train_cli(*clis[1])
-        finish_dp_cli(*clis[2], dp_cli_tokens)
+        finish_dp_cli(*clis[1], dp_cli_tokens)
         finish_cpu_ranks(*cpu_ranks)
+        finish_cpu_train_ranks(*cpu_train)
+        finish_train_clis(*train_clis)
         lap("clis and cpu ranks (after card vs cpu)")
     finally:
-        _stop([proc for proc, _ in clis] + cpu_ranks[0])
+        train_clis[0].join(timeout=660)
+        _stop([proc for proc, _ in clis] + cpu_ranks[0] + cpu_train[0] +
+              train_clis[1]["procs"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # launches: K1 on the served paths (gemma's, gemma's sharded and mixtral's) and the paper
     # path's fused ab solves (the score net, x (1, 1024, 2)); the

@@ -4,7 +4,8 @@ A copy of ``repro.configs.base`` (the port imports nothing of the JAX
 package). Only the fields and helpers the ported slices read are kept:
 ``ModelConfig`` with its derived dimensions, the hybrid pattern
 (``is_attn_layer``/``is_moe_layer``), the MoE dispatch mode, the
-cross-entropy mode, ``with_``/``reduced`` and ``get_config``, which loads
+cross-entropy mode, the MoE batch pin ``act_shard_axes``,
+``with_``/``reduced`` and ``get_config``, which loads
 ``repro_torch.configs.<arch>``.
 """
 from __future__ import annotations
@@ -65,6 +66,9 @@ class ModelConfig:
     moe_dispatch: str = "einsum"  # einsum (GShard one-hot) | gather (slot table)
     ce_mode: str = "gather"       # gather (log_softmax + gather) | onehot
     #                               (logsumexp - one-hot contraction)
+    act_shard_axes: Optional[tuple] = None  # mesh axes the MoE activation's
+    #                               batch dim is pinned to under a mesh; None
+    #                               = the batch's own layout (baseline)
 
     @property
     def resolved_head_dim(self) -> int:

@@ -7,8 +7,8 @@ bitwise the reference's).
     visibly decreases; seeded and step-indexed.
   * ``frames`` / ``prefix`` stubs for the audio and image frontends.
 
-The reference's ``device_put_sharded`` places a batch on a mesh; the port
-runs on one device, and its callers move a batch with ``torch.from_numpy``.
+``device_put_sharded`` places a host batch on a mesh (each rank keeps its
+rows); on one device the callers move a batch with ``torch.from_numpy``.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from ..configs.base import ModelConfig
 
@@ -66,3 +67,16 @@ def host_iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
     while True:
         yield make_batch(cfg, src, step, batch, seq)
         step += 1
+
+
+def device_put_sharded(batch: dict, sharding, device) -> dict:
+    """Place a host batch (numpy arrays, the same on every rank) on a mesh:
+    each array becomes a DTensor on ``device`` that holds this rank's rows
+    over the data axes and is whole over 'model', as ``sharding`` (one
+    ``rules.NamedSharding``, or a dict of them: ``rules.to_shardings(
+    rules.batch_specs(batch, mesh), mesh)``) lays it out."""
+    from ..sharding.rules import device_put
+    if not isinstance(sharding, dict):
+        sharding = {k: sharding for k in batch}
+    return {k: device_put(torch.from_numpy(np.asarray(v)).to(device), sharding[k])
+            for k, v in batch.items()}

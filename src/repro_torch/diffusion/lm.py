@@ -26,31 +26,42 @@ from ..configs.base import ModelConfig
 from ..core import sampler as SAMPLER
 from ..core.plan import SolverPlan
 from ..models import transformer as T
+from ..sharding import tensor_parallel as TP
 
 X0_SCALE = 25.0    # x0 = embed * X0_SCALE so data std ~ 0.5
 
 
-def token_embeddings(params, tokens):
+def token_embeddings(params, tokens, embed=None):
     """x0 of the diffusion: the tokens' embeddings in float32, times
-    ``X0_SCALE``."""
-    return params["embed"][tokens].to(torch.float32) * X0_SCALE
+    ``X0_SCALE`` (``embed``: the placed table, on a mesh)."""
+    table = TP.place(params["embed"]) if embed is None else embed
+    return TP.embedding(table, tokens).to(torch.float32) * X0_SCALE
 
 
-def draw_t_eps(sde, tokens, d_model: int, gen, device, t=None, eps=None):
+def draw_t_eps(sde, tokens, d_model: int, gen, device, t=None, eps=None, rows=None):
     """The diffusion loss's draws from ``gen``, each unless given: ``t``
-    (B,) ~ U(t0, T), then ``eps`` (B, S, d_model) ~ N(0, I), float32."""
+    (B,) ~ U(t0, T), then ``eps`` (B, S, d_model) ~ N(0, I), float32.
+
+    ``rows``: ``(lo, hi, B)`` when ``tokens`` are rows ``[lo, hi)`` of a
+    B-row batch split over a mesh's data axes. Every rank then draws the
+    whole batch's ``t`` and ``eps`` from the same generator (or takes the
+    given whole-batch draws) and keeps its rows, so a data-parallel step
+    sees the unsharded step's draws."""
+    n = tokens.shape[0] if rows is None else rows[2]
     if t is None:
-        t = torch.rand((tokens.shape[0],), generator=gen, device=device,
+        t = torch.rand((n,), generator=gen, device=device,
                        dtype=torch.float32) * (sde.T - sde.t0) + sde.t0
     if eps is None:
-        eps = torch.randn((*tokens.shape, d_model), generator=gen, device=device,
+        eps = torch.randn((n, *tokens.shape[1:], d_model), generator=gen, device=device,
                           dtype=torch.float32)
+    if rows is not None:
+        t, eps = t[rows[0]:rows[1]], eps[rows[0]:rows[1]]
     return t, eps
 
 
 def diffusion_loss(params, cfg: ModelConfig, sde, tokens, gen=None, *, prefix=None,
                    frames=None, ce_weight: float = 0.1, remat: bool = False, t=None,
-                   eps=None):
+                   eps=None, rows=None):
     """Paper Eq. 9 (eps matching, uniform weight) + ``ce_weight`` x the
     rounding-anchor cross-entropy + the MoE aux losses. Returns ``(loss,
     {"loss", "mse", "ce"})``.
@@ -60,10 +71,18 @@ def diffusion_loss(params, cfg: ModelConfig, sde, tokens, gen=None, *, prefix=No
     device, unless given: ``t=`` and ``eps=`` take draws from elsewhere (the
     tests hand in the reference's). ``prefix`` (vlm) goes in front of x_t
     and its positions are sliced off the eps; ``frames`` (encdec) feed the
-    encoder. ``remat``: each layer under ``torch.utils.checkpoint``."""
+    encoder. ``remat``: each layer under ``torch.utils.checkpoint``.
+
+    On a mesh (DTensor parameters) ``tokens``, ``prefix`` and ``frames``
+    are this rank's rows ``rows`` of the batch (:func:`draw_t_eps`), the
+    means are over the whole batch (``batch_mean``: every rank holds the
+    global loss)."""
     from ..training.steps import cross_entropy   # steps imports this module
-    t, eps = draw_t_eps(sde, tokens, cfg.d_model, gen, params["embed"].device, t, eps)
-    x0 = token_embeddings(params, tokens)
+    ax = TP.axes_of(params["embed"])
+    t, eps = draw_t_eps(sde, tokens, cfg.d_model, gen, params["embed"].device, t, eps,
+                        rows)
+    embed = TP.place(params["embed"])
+    x0 = token_embeddings(params, tokens, embed)
     mu = sde.mu(t)[:, None, None]
     sig = sde.sigma(t)[:, None, None]
     xt = mu * x0 + sig * eps
@@ -75,13 +94,14 @@ def diffusion_loss(params, cfg: ModelConfig, sde, tokens, gen=None, *, prefix=No
     eps_pred = out["eps"].to(torch.float32)
     if vlm:
         eps_pred = eps_pred[:, prefix.shape[1]:]
-    mse = torch.mean(torch.square(eps_pred - eps))
+    mse = TP.batch_mean(torch.mean(torch.square(eps_pred - eps)), ax)
 
     # rounding anchor: decode x0_hat back to tokens through the LM head
     x0_hat = (xt - sig * eps_pred) / torch.clamp(mu, min=1e-4)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x0_hat / X0_SCALE) @ head.to(torch.float32)
-    ce = cross_entropy(logits, tokens, cfg)
+    head = T.lm_head(params, cfg, embed)
+    logits, split = TP.linear(x0_hat / X0_SCALE, TP.cast(head, torch.float32))
+    ce = TP.batch_mean(cross_entropy(logits, tokens, cfg,
+                                     split=TP.split_of(head) if split else None), ax)
 
     aux = sum(out["aux"].values()) if out["aux"] else 0.0
     loss = mse + ce_weight * ce + aux

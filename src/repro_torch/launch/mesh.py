@@ -12,13 +12,47 @@ device type of the default backend: "cuda" under NCCL, "cpu" under gloo.
 from __future__ import annotations
 
 import math
+import os
 import weakref
 from datetime import timedelta
 
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
 from ..sharding.rules import axis_sizes
+
+
+def launched() -> bool:
+    """Whether a launcher (``torchrun``) set this process's ``RANK`` and
+    ``WORLD_SIZE``."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def init_process_group(device_arg: str, init_method: str = "env://") -> torch.device:
+    """The default process group of a launcher entry point: under a
+    launcher's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` environment one
+    rank of it (over ``init_method``), else a one-rank group in this
+    process. NCCL on ``cuda:LOCAL_RANK``, gloo with ``device_arg`` "cpu".
+    Returns this rank's device."""
+    env = os.environ
+    up = launched()
+    rank = int(env["RANK"]) if up else 0
+    world = int(env["WORLD_SIZE"]) if up else 1
+    local = int(env.get("LOCAL_RANK", 0)) if up else 0
+    if torch.device(device_arg).type == "cpu":
+        device, backend, kw = resolve_device("cpu"), "gloo", {}
+    else:
+        device = resolve_device(f"cuda:{local}")
+        torch.cuda.set_device(device)
+        backend, kw = "nccl", {"device_id": device}
+    if up:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world, **kw)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    return device
 
 
 def _world() -> int:

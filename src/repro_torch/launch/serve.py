@@ -47,11 +47,9 @@ import argparse
 import asyncio
 import itertools
 import json
-import os
 import threading
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from ..configs.base import ARCH_IDS, get_config
@@ -62,6 +60,7 @@ from ..obs.trace import Tracer
 from ..serving.driver import QueueFull, ServeDriver
 from ..serving.engine import ARServeEngine, DiffusionServeEngine, Request
 from ..training import checkpoint as CKPT
+from .mesh import init_process_group
 
 
 def make_http_server(driver: ServeDriver, port: int = 0):
@@ -297,7 +296,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     sharded = args.data_parallel and args.mode == "diffusion"
     if sharded:
-        device = _init_process_group(args.device, args.dist_init_method)
+        device = init_process_group(args.device, args.dist_init_method)
     else:
         device = resolve_device(args.device)
     try:
@@ -307,31 +306,6 @@ def main(argv=None):
     finally:
         if sharded and dist.is_initialized():   # a mesh engine that failed
             dist.destroy_process_group()        # closed has destroyed it
-
-
-def _init_process_group(device_arg: str, init_method: str):
-    """The default process group for ``--data-parallel``: under a launcher's
-    ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` environment one rank of it,
-    else a one-rank group in this process. NCCL on ``cuda:LOCAL_RANK``,
-    gloo with ``--device cpu``. Returns this rank's device."""
-    env = os.environ
-    launched = "RANK" in env and "WORLD_SIZE" in env
-    rank = int(env["RANK"]) if launched else 0
-    world = int(env["WORLD_SIZE"]) if launched else 1
-    local = int(env.get("LOCAL_RANK", 0)) if launched else 0
-    if torch.device(device_arg).type == "cpu":
-        device, backend, kw = resolve_device("cpu"), "gloo", {}
-    else:
-        device = resolve_device(f"cuda:{local}")
-        torch.cuda.set_device(device)
-        backend, kw = "nccl", {"device_id": device}
-    if launched:
-        dist.init_process_group(backend, init_method=init_method, rank=rank,
-                                world_size=world, **kw)
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1, **kw)
-    return device
 
 
 def _serve(args, device, sharded: bool) -> None:

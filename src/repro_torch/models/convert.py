@@ -39,10 +39,12 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts, lists and tuples (``rest``
-    of the same structure); None stays None."""
+    """``fn`` over the leaves of nested dicts, named tuples, lists and
+    tuples (``rest`` of the same structure); None stays None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return None if tree is None else fn(tree, *rest)

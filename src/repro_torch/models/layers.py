@@ -10,6 +10,13 @@ Plain functions over parameter dicts with the reference's layouts: weights
 ``(E, d_in, d_out)``. Every matmul accumulates in float32 and rounds once
 to the input dtype (cuBLAS and the CPU kernels both do so for bfloat16);
 the attention logits and softmax stay in float32.
+
+Under a mesh (the sharded train step) the parameters come placed
+(:func:`repro_torch.sharding.tensor_parallel.place`): attention's q/k/v are
+split over 'model' on their output (whole heads where the head count
+divides, else gathered), ``wo`` on its input; the MLP's and the experts'
+``w_up`` / ``w_gate`` on d_ff and ``w_down`` on its input; each pair meets
+in one all-reduce over 'model' (Megatron's pairing).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding import tensor_parallel as TP
 
 
 def matmul(x, w):
@@ -157,7 +165,8 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     valid_len: optional (B,) int -- per-row true sequence length when rows
     are right-padded to a bucketed S; key positions >= valid_len are masked
     out so a row's content does not depend on the bucket it landed in.
-    kv_override: ``(k, v)`` of shape (B, Sk, KV, D), already projected:
+    kv_override: ``(k, v)`` of shape (B, Sk, KV, D), already projected (on
+    a mesh ``(k, v, k0)``, ``k0`` the first kv head they hold):
     cross-attention. q gets no RoPE, every query attends to every key, and
     no cache is read or written; it takes the plain route whatever
     ``use_kernels`` says, as the reference's ``use_pallas`` route excludes
@@ -170,18 +179,28 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     ``use_pallas`` takes K2 only with ``valid_len`` and ``cache`` None).
     Returns ``(out, new_cache)``: the block's output (B, S, d_model) and
     the cache (None unless ``cache`` or ``return_kv``).
+
+    On a mesh (placed weights) each rank runs its query heads
+    (:func:`head_block`) and ``wo`` makes the output whole; a full sequence
+    on the plain route only (the sharded train step).
     """
+    if TP.split_of(params["wq"]) is not None and (cache is not None or return_kv
+                                                   or use_kernels):
+        raise ValueError("attention on a mesh runs a full sequence on the plain "
+                         "route (the sharded train step): no cache, no kernel")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = matmul(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q, q0 = head_block(x, params["wq"], cfg.n_heads, hd)
+    q_split = q.shape[2] < cfg.n_heads
     if kv_override is not None:
-        n_rep = cfg.n_heads // kv_override[0].shape[2]
-        k, v = (_repeat_kv(t, n_rep) for t in kv_override)
+        k, v, k0 = kv_override if len(kv_override) == 3 else (*kv_override, 0)
+        k, v = _kv_for_heads(k, v, k0, q0, q.shape[2], n_rep)
         mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool, device=x.device)
         out = attention_scores(q, k, v, mask, cfg.logit_softcap)
-        return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), None
-    k = matmul(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = matmul(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        return TP.linear(out.reshape(b, s, -1), params["wo"], x_split=q_split)[0], None
+    k, k0 = head_block(x, params["wk"], cfg.n_kv_heads, hd, q_split)
+    v, _ = head_block(x, params["wv"], cfg.n_kv_heads, hd, q_split)
     cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -217,9 +236,7 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
         out = ops.flash_attention(q, k, v, causal=causal,
                                   window=cfg.sliding_window)
         return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), new_cache
-    n_rep = cfg.n_heads // max(1, k.shape[2])
-    k = _repeat_kv(k, n_rep)
-    v = _repeat_kv(v, n_rep)
+    k, v = _kv_for_heads(k, v, k0, q0, q.shape[2], n_rep)
     if cache is not None:
         mask = _decode_mask(cfg, positions, k.shape[1], cache_index, x.device)
     else:
@@ -229,7 +246,39 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
         mask = make_attention_mask(positions, positions, causal,
                                    cfg.sliding_window, kv_valid=kv_valid)
     out = attention_scores(q, k, v, mask, cfg.logit_softcap)
-    return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), new_cache
+    return TP.linear(out.reshape(b, s, -1), params["wo"], x_split=q_split)[0], new_cache
+
+
+def heads_split(w, n_heads: int) -> bool:
+    """Whether a placed projection gives each model rank whole heads of its
+    own: split over 'model' on its output, the head count dividing."""
+    split = TP.split_of(w)
+    return split is not None and split.dim == w.ndim - 1 and n_heads % split.ax.model == 0
+
+
+def head_block(x, w, n_heads: int, hd: int, q_split: bool = False):
+    """``x @ w`` as heads: ``(heads (B, S, n, hd), first)``, the ``n`` whole
+    heads this rank holds from head ``first`` on (all ``n_heads`` from 0
+    for an unplaced weight). On a mesh a product split over 'model' keeps
+    its block where the head count divides; any other split is gathered.
+    ``q_split``: gathered kv heads feed this rank's query heads only, so
+    their grads are summed over 'model'."""
+    y, split = TP.linear(x, w)
+    b, s = y.shape[:2]
+    if heads_split(w, n_heads):
+        n = n_heads // TP.split_of(w).ax.model
+        return y.reshape(b, s, n, hd), TP.split_of(w).ax.model_rank * n
+    return TP.whole(y, split, w, summed=q_split).reshape(b, s, n_heads, hd), 0
+
+
+def _kv_for_heads(k, v, k0: int, q0: int, nq: int, n_rep: int):
+    """k and v (B, S, nk, D) from kv head ``k0`` on, repeated for the ``nq``
+    query heads from ``q0`` on (query head h reads kv head h // n_rep)."""
+    if q0 % n_rep == 0 and q0 // n_rep == k0 and nq == k.shape[2] * n_rep:
+        return _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    idx = torch.div(torch.arange(q0, q0 + nq, device=k.device), n_rep,
+                    rounding_mode="floor") - k0
+    return k[:, :, idx], v[:, :, idx]
 
 
 # --------------------------------------------------------------------- MLPs
@@ -252,12 +301,12 @@ def _act(name: str):
 
 
 def mlp(params, cfg: ModelConfig, x):
-    up = matmul(x, params["w_up"])
+    up, split = TP.linear(x, params["w_up"])
     if cfg.glu:
-        up = _act(cfg.act)(matmul(x, params["w_gate"])) * up
+        up = _act(cfg.act)(TP.linear(x, params["w_gate"])[0]) * up
     else:
         up = _act(cfg.act)(up)
-    return matmul(up, params["w_down"])
+    return TP.linear(up, params["w_down"], x_split=split)[0]
 
 
 # ---------------------------------------------------------------------- MoE
@@ -318,10 +367,10 @@ def _experts(params, xin):
     (the reference's ``moe`` applies silu whatever ``cfg.act`` says)."""
     b, e, c, d = xin.shape
     xin = xin.transpose(0, 1).reshape(e, b * c, d)
-    h = torch.bmm(xin, params["w_up"])
-    g = torch.bmm(xin, params["w_gate"])
+    h, split = TP.linear(xin, params["w_up"], op=torch.bmm)
+    g, _ = TP.linear(xin, params["w_gate"], op=torch.bmm)      # split as w_up
     h = (F.silu(g.to(torch.float32)) * h.to(torch.float32)).to(xin.dtype)
-    out = torch.bmm(h, params["w_down"])
+    out, _ = TP.linear(h, params["w_down"], x_split=split, op=torch.bmm)
     return out.reshape(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
 
 
@@ -378,8 +427,15 @@ def moe(params, cfg: ModelConfig, x):
     gathers in and out). Both drop the same (token, choice) pairs and agree
     to rounding. Returns ``(out, {"moe_lb", "moe_z"})``: the load-balance
     loss ``E * sum(mean gate * share dispatched)`` and the router z-loss
-    ``mean(logsumexp(logits)^2)``, each times its coefficient."""
+    ``mean(logsumexp(logits)^2)``, each times its coefficient.
+
+    On a mesh the rows are this rank's block of the batch, so the batch dim
+    is split over the batch axes (``cfg.act_shard_axes`` pins it there: the
+    sharded loss refuses a batch that is not split over them), the experts
+    are split over 'model' on d_ff, and both losses take their batch means
+    over the whole batch (``batch_mean``)."""
     mcfg = cfg.moe
+    ax = TP.axes_of(params["router"])
     r = moe_route(params, cfg, x)
     if cfg.moe_dispatch == "gather":
         out, frac_dispatched = _dispatch_gather(params, x, r)
@@ -387,7 +443,9 @@ def moe(params, cfg: ModelConfig, x):
         out, frac_dispatched = _dispatch_einsum(params, x, r)
     else:
         raise ValueError(f"moe_dispatch must be einsum or gather, got {cfg.moe_dispatch!r}")
-    me = r["gates"].mean((0, 1))
+    me = TP.batch_mean(r["gates"].mean((0, 1)), ax)
+    frac_dispatched = TP.batch_mean(frac_dispatched, ax)
     lb_loss = mcfg.num_experts * (me * frac_dispatched).sum() * mcfg.load_balance_loss
-    z_loss = (torch.logsumexp(r["logits"], -1) ** 2).mean() * mcfg.router_z_loss
+    z_loss = TP.batch_mean((torch.logsumexp(r["logits"], -1) ** 2).mean(), ax) \
+        * mcfg.router_z_loss
     return out, {"moe_lb": lb_loss, "moe_z": z_loss}

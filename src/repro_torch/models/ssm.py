@@ -12,6 +12,14 @@ duality with one scalar decay per head::
 (:func:`repro_torch.kernels.ops.ssd_scan`) instead, as the reference's
 ``use_pallas`` does. Autoregressive decode carries a cache of the conv
 history and the state and takes the O(1) recurrent update per token.
+
+Under a mesh (the sharded train step, parameters placed by
+:func:`repro_torch.sharding.tensor_parallel.place`) ``in_proj`` is split
+over 'model' on its output and ``out_proj`` on its input, ``conv_w`` /
+``conv_b`` on their channels. The in-projection's blocks cut across its
+``[z, xBC, dt]`` parts, so its output is gathered; the convolution runs on
+this rank's channels and is gathered again; the scan and the gated norm
+run whole on every model rank, and ``out_proj`` takes its block of y.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..sharding import tensor_parallel as TP
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -144,12 +153,22 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     n, p = scfg.state_dim, scfg.head_dim
     f32 = torch.float32
 
-    z, xbc, dt = _split_proj(cfg, x @ params["in_proj"])
+    zxbcdt, split = TP.linear(x, params["in_proj"])
+    z, xbc, dt = _split_proj(cfg, TP.whole(zxbcdt, split, params["in_proj"]))
     dt = F.softplus(dt.to(f32) + params["dt_bias"])          # (B, S, H)
     a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
 
+    conv = TP.split_of(params["conv_w"])
+    if conv is not None and (cache is not None or use_kernels):
+        raise ValueError("the mixer on a mesh runs a full sequence on the plain route "
+                         "(the sharded train step): no cache, no kernel")
+    channels = conv is not None and conv.dim is not None
+    if channels:
+        xbc = TP.split_model(xbc, -1, conv.ax)
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                    state=None if cache is None else cache["conv"])
+    if channels:
+        xbc = TP.gather_model(xbc, -1, conv.ax)
     xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
     xh = xs.reshape(bsz, s, n_heads, p)
     if cache is not None:
@@ -173,5 +192,5 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
     y = y * (1.0 + params["norm_scale"].to(f32))
     y = y * F.silu(z.to(f32))
-    out = y.to(x.dtype) @ params["out_proj"]
+    out, _ = TP.linear(y.to(x.dtype), params["out_proj"])
     return out, {"conv": conv_state, "state": state}

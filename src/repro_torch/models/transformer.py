@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..sharding import tensor_parallel as TP
 from . import layers as L
 from . import ssm as S
 
@@ -126,7 +127,7 @@ def _init_layer(gen, cfg: ModelConfig, i: int, dtype, device,
     return layer
 
 
-def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
+def init_params(cfg: ModelConfig, generator=0, device=None, place=None) -> dict:
     """Random parameters with the reference's shapes and scales
     (``repro.models.transformer.init_params`` and the layer initialisers).
 
@@ -136,8 +137,16 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     :func:`repro_torch.models.convert.params_from_numpy` to carry the
     reference's own weights over. An encdec arch adds ``encoder`` (a list
     of ``encoder_layers`` attention + MLP layers, without cross-attention)
-    and ``enc_final_norm``."""
+    and ``enc_final_norm``.
+
+    ``place(path, tree)``, when given, takes each piece as soon as it is
+    made -- one layer (path ``("blocks", i)`` or ``("encoder", i)``) or
+    one top-level entry (``("embed",)``, ``("time_mlp",)``, ...) -- and
+    returns what the tree keeps of it (its shards on a mesh): the whole
+    model is then never held at once. The draws are the same with or
+    without it."""
     _check_arch(cfg)
+    place = place or (lambda path, tree: tree)
     device = resolve_device(device)
     gen = generator
     if not isinstance(gen, torch.Generator):
@@ -148,24 +157,25 @@ def init_params(cfg: ModelConfig, generator=0, device=None) -> dict:
     d = cfg.d_model
     n_blocks(cfg)      # raises unless the layers fill whole blocks
     encdec = cfg.arch_type == "encdec"
-    blocks = [_init_layer(gen, cfg, i, dtype, device, cross=encdec)
+    blocks = [place(("blocks", i), _init_layer(gen, cfg, i, dtype, device, cross=encdec))
               for i in range(cfg.n_layers)]
     p: dict[str, Any] = {
-        "embed": (n((cfg.vocab_size, d)) * 0.02).to(dtype),
+        "embed": place(("embed",), (n((cfg.vocab_size, d)) * 0.02).to(dtype)),
         "blocks": blocks,
-        "final_norm": zeros(d),
+        "final_norm": place(("final_norm",), zeros(d)),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = (n((d, cfg.vocab_size)) * 0.02).to(dtype)
+        p["lm_head"] = place(("lm_head",), (n((d, cfg.vocab_size)) * 0.02).to(dtype))
     if cfg.objective == "diffusion":
         te = cfg.time_emb_dim
-        p["time_mlp"] = {"w1": (n((te, d)) * 0.02).to(dtype), "b1": zeros(d),
-                         "w2": (n((d, d)) * 0.02).to(dtype), "b2": zeros(d)}
-        p["eps_head"] = (n((d, d)) * 0.02).to(dtype)
+        p["time_mlp"] = place(("time_mlp",), {
+            "w1": (n((te, d)) * 0.02).to(dtype), "b1": zeros(d),
+            "w2": (n((d, d)) * 0.02).to(dtype), "b2": zeros(d)})
+        p["eps_head"] = place(("eps_head",), (n((d, d)) * 0.02).to(dtype))
     if encdec:
-        p["encoder"] = [_init_layer(gen, cfg, 0, dtype, device)
-                        for _ in range(cfg.encoder_layers)]
-        p["enc_final_norm"] = zeros(d)
+        p["encoder"] = [place(("encoder", j), _init_layer(gen, cfg, 0, dtype, device))
+                        for j in range(cfg.encoder_layers)]
+        p["enc_final_norm"] = place(("enc_final_norm",), zeros(d))
     return p
 
 
@@ -186,11 +196,14 @@ def _time_mlp(tm, te):
 def _cross_kv(cfg: ModelConfig, layer: dict, enc_out) -> dict:
     """A decoder layer's cross-attention ``{"k", "v"}``, each (B, F,
     n_kv_heads, head_dim), projected from the encoder's output (B, F,
-    d_model) with its ``cross`` block's ``wk`` and ``wv``."""
-    b, hd = enc_out.shape[0], cfg.resolved_head_dim
-    p = layer["cross"]
-    return {"k": L.matmul(enc_out, p["wk"]).reshape(b, -1, cfg.n_kv_heads, hd),
-            "v": L.matmul(enc_out, p["wv"]).reshape(b, -1, cfg.n_kv_heads, hd)}
+    d_model) with its ``cross`` block's ``wk`` and ``wv``. On a mesh (a
+    placed layer) the kv heads this rank holds, and ``"k0"``, the first,
+    where it is not 0."""
+    hd, p = cfg.resolved_head_dim, layer["cross"]
+    q_split = L.heads_split(p["wq"], cfg.n_heads)
+    k, k0 = L.head_block(enc_out, p["wk"], cfg.n_kv_heads, hd, q_split)
+    v, _ = L.head_block(enc_out, p["wv"], cfg.n_kv_heads, hd, q_split)
+    return {"k": k, "v": v} if k0 == 0 else {"k": k, "v": v, "k0": k0}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
@@ -234,13 +247,23 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 
 def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
                  causal, cache=None, cache_index=None, cross=None,
-                 collect_kv=False, valid_len=None, use_kernels=False):
+                 collect_kv=False, valid_len=None, use_kernels=False,
+                 sharded=False):
     """Layer ``i`` (the reference's ``_apply_block`` for one slot): the
     mixer and its residual; for a decoder layer of an encdec arch, given
     ``cross`` (its ``{"k", "v"}``), ``norm_x`` and cross-attention with its
     residual; then the MLP or MoE (whose aux losses are added into
-    ``aux``). Returns ``(h, the layer's cache)``."""
+    ``aux``). Returns ``(h, the layer's cache)``.
+
+    ``sharded``: the layer's parameters are on a mesh; they are placed
+    here, just before the layer runs (see ``forward``), and ``cross`` is
+    the encoder's output, projected here with the placed ``cross``
+    weights."""
     mixer, mlpk = _layer_kind(cfg, i)
+    if sharded:
+        bp = TP.place_tree(bp)
+        if cross is not None:
+            cross = _cross_kv(cfg, bp, cross)
     hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
     if mixer == "ssm":
         out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=cache,
@@ -254,7 +277,7 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
     if cross is not None:
         hx = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
         out, _ = L.attention(bp["cross"], cfg, hx, positions, causal=False,
-                             kv_override=(cross["k"], cross["v"]))
+                             kv_override=(cross["k"], cross["v"], cross.get("k0", 0)))
         h = h + out
     if mlpk != "none":
         hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
@@ -272,25 +295,36 @@ def _add_aux(aux: dict, new: dict) -> None:
         aux[k] = aux[k] + v if k in aux else v
 
 
-def _remat_layer(cfg, i, bp, h, positions, cross, causal, valid_len, use_kernels):
+def _remat_layer(cfg, i, bp, h, positions, cross, causal, valid_len, use_kernels,
+                 sharded):
     """Layer ``i`` in train mode as a pure function of its inputs, ``(h, its
     own aux losses)``: what ``forward(remat=True)`` checkpoints (the
-    backward pass re-runs it, so it must not add into the caller's aux)."""
+    backward pass re-runs it, so it must not add into the caller's aux; on
+    a mesh the re-run places the layer's parameters again)."""
     aux: dict = {}
     h, _ = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cross=cross,
-                        valid_len=valid_len, use_kernels=use_kernels)
+                        valid_len=valid_len, use_kernels=use_kernels, sharded=sharded)
     return h, aux
 
 
-def _run_encoder(params, cfg: ModelConfig, frames):
+def _run_encoder(params, cfg: ModelConfig, frames, sharded=False):
     """The encoder over ``frames`` (B, F, d_model): bidirectional attention
     + MLP layers on the plain route, then ``enc_final_norm``."""
     h = frames.to(_dtype(cfg))
     b, f, _ = h.shape
     positions = torch.arange(f, device=h.device)[None].expand(b, f)
     for layer in params["encoder"]:
-        h, _ = _apply_layer(cfg, 0, layer, h, positions, {}, causal=False)
-    return L.rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
+        h, _ = _apply_layer(cfg, 0, layer, h, positions, {}, causal=False, sharded=sharded)
+    return L.rms_norm(h, TP.place(params["enc_final_norm"]), cfg.norm_eps)
+
+
+def lm_head(params, cfg: ModelConfig, embed=None):
+    """The LM head (d_model, vocab): ``embed``'s transpose for tied
+    embeddings (``embed``, when given, is the placed table), else
+    ``lm_head``; placed on a mesh (split over 'model' on the vocabulary)."""
+    if cfg.tie_embeddings:
+        return TP.transpose(TP.place(params["embed"]) if embed is None else embed)
+    return TP.place(params["lm_head"])
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
@@ -321,17 +355,31 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     K2 (which refuses ``valid_len`` and a cache) and the Mamba2 scan
     through K3. remat: train mode only; each decoder layer runs under
     ``torch.utils.checkpoint`` (its activations are recomputed in the
-    backward pass; the reference's ``jax.checkpoint`` of a scan block)."""
+    backward pass; the reference's ``jax.checkpoint`` of a scan block).
+
+    On a mesh (DTensor parameters placed by the spec rules: the sharded
+    train step) the inputs are this rank's rows of the batch, and the mode
+    is "train" on the plain route. Each layer's parameters are placed just
+    before it runs: their compute layout is the storage layout without the
+    batch axes (an fsdp weight is gathered over 'data' for its layer only:
+    the reference's ZeRO-3 ``block_constraint``); under ``remat`` the
+    placement is re-run in the backward. The eps head's output comes back
+    whole; the logits come back split over 'model' on the vocabulary when
+    the head is, with ``logits_split`` (the head's split) beside them."""
     _check_arch(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+    sharded = TP.on_mesh(params["embed"])
+    if sharded and (mode != "train" or use_kernels):
+        raise ValueError("a model on a mesh runs train mode on the plain route (the "
+                         f"sharded train step), got mode {mode!r}, use_kernels {use_kernels}")
     dtype = _dtype(cfg)
     if causal is None:
         causal = cfg.objective != "diffusion"
     if embeds is not None:
         h = embeds.to(dtype)
     else:
-        h = params["embed"][tokens].to(dtype)
+        h = TP.embedding(TP.place(params["embed"]), tokens).to(dtype)
         if cfg.arch_type == "vlm" and mode != "decode" and prefix is not None:
             h = torch.cat([prefix.to(dtype), h], dim=1)
     b, s, _ = h.shape
@@ -343,7 +391,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
         positions = torch.arange(s, device=h.device)[None].expand(b, s)
 
     if t_cond is not None:
-        te = _time_mlp(params["time_mlp"], L.sinusoidal_embedding(
+        te = _time_mlp(TP.place_tree(params["time_mlp"]), L.sinusoidal_embedding(
             t_cond, cfg.time_emb_dim).to(dtype))
         h = h + te[:, None, :]     # (B or 1, 1, d_model) broadcasts over rows
 
@@ -358,7 +406,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             raise ValueError(f"{cfg.name} is an encoder-decoder: forward in {mode} "
                              "mode needs frames= (B, F, d_model), the encoder's inputs")
         else:
-            enc_out = _run_encoder(params, cfg, frames)
+            enc_out = _run_encoder(params, cfg, frames, sharded)
 
     collect_kv = mode == "prefill"
     if remat and mode != "train":
@@ -371,23 +419,27 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
         c = cache["blocks"][i] if cache is not None else None
         cross = None
         if "cross" in bp:
-            cross = cache["cross"][i] if mode == "decode" else _cross_kv(cfg, bp, enc_out)
+            if sharded:        # projected in the layer, from its placed weights
+                cross = enc_out
+            else:
+                cross = cache["cross"][i] if mode == "decode" else _cross_kv(cfg, bp, enc_out)
             if new_cross is not None:
                 new_cross.append(cross)
         if remat:
             h, layer_aux = checkpoint(_remat_layer, cfg, i, bp, h, positions, cross,
-                                      causal, valid_len, use_kernels, use_reentrant=False)
+                                      causal, valid_len, use_kernels, sharded,
+                                      use_reentrant=False)
             _add_aux(aux, layer_aux)
             nc = None
         else:
             h, nc = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cache=c,
                                  cache_index=cache_index, cross=cross,
                                  collect_kv=collect_kv, valid_len=valid_len,
-                                 use_kernels=use_kernels)
+                                 use_kernels=use_kernels, sharded=sharded)
         if new_blocks is not None:
             new_blocks.append(nc if nc is not None else c)
 
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = L.rms_norm(h, TP.place(params["final_norm"]), cfg.norm_eps)
     new_cache = None
     if new_blocks is not None:
         new_cache = dict(cache or {}, blocks=new_blocks)
@@ -395,11 +447,14 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             new_cache["cross"] = new_cross
     out = {"hidden": h, "aux": aux, "cache": new_cache}
     if cfg.objective == "diffusion" and embeds is not None:
-        out["eps"] = L.matmul(h, params["eps_head"])
+        eps_head = TP.place(params["eps_head"])
+        out["eps"] = TP.whole(*TP.linear(h, eps_head), eps_head)
     if logits:
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        lg = h.to(torch.float32) @ head.to(torch.float32)
+        head = lm_head(params, cfg)
+        lg, split = TP.linear(h.to(torch.float32), TP.cast(head, torch.float32))
         if cfg.logit_softcap:
             lg = cfg.logit_softcap * torch.tanh(lg / cfg.logit_softcap)
         out["logits"] = lg
+        if split:
+            out["logits_split"] = TP.split_of(head)
     return out

@@ -176,9 +176,11 @@ def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def param_specs(params_shape, mesh, fsdp: bool = False, ff2d: bool = False):
+def param_specs(params_shape, mesh, fsdp: bool = False, ff2d: bool = False,
+                path: tuple = ()):
     """Spec tree for a params (or AdamW moment) tree; leaves need only a
-    ``shape``."""
+    ``shape``. ``path``: where ``params_shape`` sits in the params tree,
+    for a piece of it (``("blocks", 3)`` for layer 3)."""
     rules = _param_rules(fsdp, ff2d)
 
     def assign(path, leaf):
@@ -191,7 +193,7 @@ def param_specs(params_shape, mesh, fsdp: bool = False, ff2d: bool = False):
                 return fn(shape, mesh)
         return P()
 
-    return _map_with_path(assign, params_shape)
+    return _map_with_path(assign, params_shape, tuple(path))
 
 
 def opt_state_specs(opt_state_shape, params_spec, mesh):
@@ -276,6 +278,46 @@ def _map_specs(fn, tree):
 def to_shardings(spec_tree, mesh):
     """Each spec of ``spec_tree`` bound to ``mesh`` as a :class:`NamedSharding`."""
     return _map_specs(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def _place_leaf(t, sharding):
+    """One leaf on its mesh: a DTensor whose local tensor is a copy of this
+    rank's block of ``t`` (the same tensor on every rank) under the
+    sharding's spec (``t`` is neither kept nor changed by later in-place
+    updates)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    local = sharding.local(t).clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, sharding.mesh, to_placements(sharding.spec, sharding.mesh),
+                              run_check=False, shape=t.shape, stride=t.stride())
+
+
+def device_put(tree, shardings):
+    """Put a tree on its mesh (the reference's ``jax.device_put(tree,
+    to_shardings(specs, mesh))``): each tensor leaf, the same on every
+    rank, becomes a ``torch.distributed.tensor.DTensor`` with
+    ``to_placements(spec)`` holding only this rank's block. ``shardings``
+    is a tree of :class:`NamedSharding` like ``tree`` (``to_shardings``)
+    or one sharding for every leaf."""
+    from ..models.convert import tree_map   # local: keeps the rules light
+    if isinstance(shardings, NamedSharding):
+        return tree_map(lambda t: _place_leaf(t, shardings), tree)
+    return tree_map(_place_leaf, tree, shardings)
+
+
+def place_like(t, like):
+    """The whole tensor ``t`` placed as the DTensor ``like`` is (its mesh and
+    placements; this rank keeps its block)."""
+    from torch.distributed.tensor import Shard
+    mesh = like.device_mesh
+    names = axis_names(mesh)
+    parts: list = [None] * t.ndim
+    for name, pl in zip(names, like.placements):
+        if isinstance(pl, Shard):
+            prev = parts[pl.dim]
+            parts[pl.dim] = name if prev is None else (prev if isinstance(prev, tuple)
+                                                      else (prev,)) + (name,)
+    return _place_leaf(t, NamedSharding(mesh, P(*parts)))
 
 
 def to_placements(spec, mesh) -> list:

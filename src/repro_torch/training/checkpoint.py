@@ -14,6 +14,12 @@ their raw 2-byte words (``'V2'``), with ``"bfloat16"`` in the manifest's
 ``dtypes``; :func:`restore` views them as int16 and then as
 ``torch.bfloat16``. (The JAX package's own ``restore`` cannot cast such a
 leaf back and raises, whichever package wrote it.)
+
+A tree on a mesh (DTensor leaves) is saved whole: each leaf is gathered in
+turn, rank 0 writes the same files, and every rank waits for the write.
+Restoring into such a tree loads the whole arrays on every rank and keeps
+each leaf's block as ``like``'s leaf is placed, so a sharded run resumes an
+unsharded one and the reverse.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ import tempfile
 import numpy as np
 import torch
 
-from ..models.convert import LAYER_LISTS, layers_per_block, params_to_numpy
+from ..models.convert import LAYER_LISTS, layers_per_block, params_to_numpy, tree_map
+from ..sharding import tensor_parallel as TP
+from ..sharding.rules import place_like
 
 
 def _keys(node):
@@ -59,6 +67,13 @@ def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None) -> str:
     :class:`~repro_torch.training.optimizer.OptState`'s fields go under
     ``.step``, ``.m`` and ``.v``, its moments restacked like the params
     (paths ``[1]/.m/['blocks']/['slot0']/...``)."""
+    if _on_mesh(tree):
+        import torch.distributed as dist
+        host = _gather_to_host(tree, dist.get_rank() == 0)
+        step_dir = save(ckpt_dir, step, host, metadata) if dist.get_rank() == 0 else \
+            os.path.join(ckpt_dir, f"step_{step:08d}")
+        dist.barrier()
+        return step_dir
     pairs = list(_flatten(params_to_numpy(tree)))
     paths = [p for p, _ in pairs]
     arrs = [a for _, a in pairs]
@@ -81,6 +96,21 @@ def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None) -> str:
         shutil.rmtree(step_dir)
     os.replace(tmp, step_dir)
     return step_dir
+
+
+def _on_mesh(tree) -> bool:
+    return any(TP.is_sharded(leaf) for _, leaf in _flatten(tree))
+
+
+def _gather_to_host(tree, keep: bool):
+    """Each DTensor leaf gathered whole (every rank takes part, leaf by
+    leaf) and, where ``keep``, moved to the host; elsewhere dropped."""
+    def leaf(t):
+        if not TP.is_sharded(t):
+            return t
+        whole = t.full_tensor()
+        return whole.cpu() if keep else None
+    return tree_map(leaf, tree)
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -147,6 +177,7 @@ def restore(ckpt_dir: str, like, step: int | None = None):
             t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))
-        return t.to(device=leaf.device, dtype=leaf.dtype)
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
+        return place_like(t, leaf) if TP.is_sharded(leaf) else t
 
     return _rebuild(like, (), load), manifest["metadata"]

@@ -25,7 +25,6 @@ from repro_torch.models.convert import params_from_numpy
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["glm4_9b", "granite_3_8b", "cifar10_scorenet"]
-SKIP = {"act_shard_axes"}     # a mesh lever, not ported
 
 
 def _models(arch, objective):
@@ -41,11 +40,11 @@ def test_arch_ids_are_the_references():
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_matches_reference(arch):
-    """Every field but the two unported levers, published and reduced."""
+    """Every field (the mesh lever ``act_shard_axes`` too), published and
+    reduced."""
     for r, p in ((ref_get_config(arch), get_config(arch)),
                  (ref_get_config(arch).reduced(), get_config(arch).reduced())):
-        want = {k: v for k, v in dataclasses.asdict(r).items() if k not in SKIP}
-        assert dataclasses.asdict(p) == want
+        assert dataclasses.asdict(p) == dataclasses.asdict(r)
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])

@@ -22,7 +22,9 @@ the card and sampled by a fused tab3 plan through K1 at x (1, 1024, 2)
 
 The request-axis slice's card tests: the sharded engine on a one-rank NCCL
 group bitwise equal to the unsharded engine on the card, and expert-parallel
-MoE there within the reference's bounds (2e-4 output, 1e-3 load-balance)."""
+MoE there within the reference's bounds (2e-4 output, 1e-3 load-balance).
+The model-parallel slice's: the sharded train step on a one-rank NCCL host
+mesh bitwise equal to the unsharded step on the card."""
 import sys
 from pathlib import Path
 
@@ -366,3 +368,42 @@ def test_cuda_expert_parallel_one_rank(one_rank_nccl):
     want, aux_w = L.moe(params, cfg, x)
     assert (out - want).abs().max().item() < 2e-4
     assert abs(aux["moe_lb"].item() - aux_w["moe_lb"].item()) < 1e-3
+
+
+def test_cuda_sharded_train_step_one_rank(one_rank_nccl):
+    """The model-parallel train step on a one-rank NCCL host mesh (DTensor
+    params, moments and batch), reduced float32 gemma on the card, 2 steps:
+    the unsharded step's losses, grad norms and params, bitwise (at one rank
+    the local shapes and products are the unsharded ones)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTextSource, device_put_sharded, make_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding import rules as R
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    from repro_torch.training.steps import make_train_step
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    mesh = make_host_mesh(model=1)
+    src = MarkovTextSource(cfg.vocab_size, 0)
+    runs = []
+    for sharded in (False, True):
+        params = init_params(cfg, 0, "cuda")
+        if sharded:
+            params = R.device_put(params, R.to_shardings(R.param_specs(params, mesh), mesh))
+        opt = AdamW(constant_schedule(1e-3))
+        state, step = opt.init(params), make_train_step(cfg, opt)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        metrics = []
+        for i in range(2):
+            host = make_batch(cfg, src, i, 4, 16)
+            batch = device_put_sharded(host, R.to_shardings(R.batch_specs(host, mesh), mesh),
+                                       "cuda") if sharded else \
+                {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+            params, state, m = step(params, state, batch, gen)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        leaves = [p.full_tensor() if sharded else p for p in tree_leaves(params)]
+        runs.append((metrics, leaves))
+    (m0, p0), (m1, p1) = runs
+    assert m1 == m0
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

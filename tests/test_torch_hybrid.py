@@ -46,13 +46,11 @@ def _models(arch, **kw):
 @pytest.mark.parametrize("arch", NEW)
 def test_configs_match_reference(arch):
     assert arch in ARCH_IDS
-    skip = {"act_shard_axes"}     # a mesh lever, not ported
     for full in (True, False):
         r, p = ref_get_config(arch), get_config(arch)
         if not full:
             r, p = r.reduced(), p.reduced()
-        want = {k: v for k, v in dataclasses.asdict(r).items() if k not in skip}
-        assert dataclasses.asdict(p) == want
+        assert dataclasses.asdict(p) == dataclasses.asdict(r)
 
 
 @pytest.mark.parametrize("arch", ["jamba_1p5_large", "mixtral_8x7b", "grok_1_314b",

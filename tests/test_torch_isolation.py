@@ -49,7 +49,7 @@ def test_port_has_the_slice_modules():
                 "diffusion/analytic.py", "diffusion/score_net.py",
                 "core/likelihood.py", "core/matrix_sde.py", "launch/mesh.py",
                 "sharding/__init__.py", "sharding/rules.py",
-                "sharding/expert_parallel.py"):
+                "sharding/expert_parallel.py", "sharding/tensor_parallel.py"):
         assert (pkg / rel).is_file(), rel
 
 

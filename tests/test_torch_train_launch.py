@@ -16,8 +16,9 @@
   (``seed + 1``) before the loop, so a resumed diffusion run re-uses the
   first steps' draws: bitwise equal to restore + a fresh generator, and
   not the uninterrupted run.
-* ``--model-parallel 2`` raises; without ``--device cpu`` it asks for the
-  card."""
+* ``--model-parallel 2`` without a launcher raises (it names torchrun);
+  under a launcher's environment at one rank the sharded launcher prints
+  the unsharded lines; without ``--device cpu`` it asks for the card."""
 import re
 import shutil
 import sys
@@ -133,8 +134,27 @@ def test_resumed_run_reuses_the_first_draws(tmp_path, capsys):
 
 
 def test_model_parallel_raises():
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    """Without a launcher's environment a sharded mesh has no ranks."""
+    with pytest.raises(ValueError, match="torchrun"):
         main(["--arch", "gemma_2b", *CPU, "--model-parallel", "2"])
+
+
+def test_one_rank_sharded_launcher_prints_the_unsharded_lines(tmp_path, capsys,
+                                                              monkeypatch):
+    """Under a launcher's environment at one rank the launcher trains on the
+    (1, 1) mesh (DTensor params and batches, gloo): the unsharded run's
+    loss and grad-norm lines."""
+    common = ["--arch", "gemma_2b", *CPU, "--batch", "2", "--seq", "8", "--steps", "3"]
+    main(common)
+    want = capsys.readouterr().out
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    main(common + ["--dist-init-method", f"file://{tmp_path / 'store'}"])
+    got = capsys.readouterr().out
+    lines = lambda text: [re.sub(r" \(\S+s\)$", "", ln) for ln in text.splitlines()
+                          if ln.startswith(("arch=", "step "))]
+    assert lines(got) == lines(want) and len(lines(want)) == 4
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
