@@ -17,8 +17,8 @@ Phases (any failure raises and the script exits non-zero):
    them, or with spills, fails the phase.
 3. Kernel K1 (``fused_ab_step``, Triton, built into ``build/triton``): held
    against its plain PyTorch version for r in 1..4, noise on/off, error
-   pair on/off, R in {1, 5} at a ragged size (rtol = atol = 1e-6: FMA
-   contraction and summation order), stacked rows bitwise equal to solo
+   pair on/off, R in {1, 5} at a ragged size (rtol = atol = 1e-6; K1 is
+   built without FMA contraction, so float32 reads 0), stacked rows bitwise equal to solo
    calls; at the one-shot path's shapes (one row of M 1024 = batch 4 x seq
    256, D 2048 for gemma-2b and 2560 for mamba2-2.7b, r 1..3, no noise, no
    error pair); then timed with CUDA events at the main path's shape beside
@@ -187,6 +187,17 @@ Phases (any failure raises and the script exits non-zero):
    launches asserted and held against its plain version there; the GMM
    likelihood at 8/16/32 kutta3 steps (error under 0.02 bits/dim at 32,
    asserted) and one ``AdaptiveRK23`` solve (NFE, accepted, rejected).
+16. The dry runs (``launch.dryrun``, ``launch.hillclimb``; ``phase_dryrun``):
+   one DEIS NFE and one model-parallel train step of full-width gemma-2b
+   at batch 4, seq 256, built by the dry run's ``make_workload``, counted
+   on the card over a one-rank NCCL mesh and, in a subprocess, on fake
+   CUDA tensors over a fake one-rank group: FLOPs, bytes and collectives
+   equal (asserted); the measured step (CUDA events) beside the modelled
+   roofline terms, the fake peak beside ``max_memory_allocated``. Then the
+   CLIs on the (16, 16) production mesh of a fake 256-rank group in
+   subprocesses: gemma-2b at ``deis_4k`` and ``train_4k`` (status ok,
+   FLOPs and collectives counted) and the ``gemma_deis`` hillclimb (every
+   variant ran).
 
 The kernel JSON has one row per hand-written kernel: K1, and both kernels
 of K2 and of K3, each with its launches on its paths (K1 on the served
@@ -219,7 +230,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-K1_TOL = 1e-6          # float32: FMA contraction and summation order
+K1_TOL = 1e-6          # float32 (K1 has no FMA contraction: it reads 0 against its plain version)
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX kernel tests' _tol
 K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}   # the JAX ssd_scan test's
 K3_F32_SCALE = 1e-5    # float32 at full width: atol = K3_F32_SCALE * max|want|
@@ -2282,6 +2293,165 @@ def phase_paper(device, reduced):
                 bound_ms=bound_ms)
 
 
+DRYRUN_KINDS = ("deis", "train")   # the card check's steps (B 4, S 256, full-width gemma-2b)
+DRYRUN_PAIR = "gemma_deis"
+
+
+def _dryrun_workload(kind, device, reduced, mesh):
+    """The card check's step through the dry run's own workload on ``mesh``:
+    one DEIS NFE (``make_deis_sample_step``) or the model-parallel train step
+    of ``phase_sharded_train`` (no remat), gemma-2b at batch 4, seq 256."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as D
+    cfg = get_config("gemma_2b")
+    cfg = (cfg.reduced() if reduced else cfg).with_(objective="diffusion")
+    batch_n, seq = (2, 16) if reduced else (4, 256)
+    return D.make_workload(cfg, ShapeConfig(f"card_{kind}", seq, batch_n, kind), mesh,
+                           remat=False, device=device)
+
+
+def dryrun_count_child(kind, device, reduced) -> int:
+    """``chip_smoke.py --dryrun-count KIND``: the card check's step counted
+    on fake tensors of ``device`` over a fake one-rank group (this process's
+    only default group), printed as one JSON line."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    D.init_fake_world(1)
+    try:
+        mesh = make_host_mesh(model=1, device_type=device.type)
+        with FakeTensorMode():
+            fn, args, _ = _dryrun_workload(kind, device, reduced, mesh)
+            costs = D.count_costs(fn, args, mesh)
+        print(json.dumps(dict(costs, roofline=D.roofline(costs, mesh))))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dryrun_cli(args, out):
+    return _popen([sys.executable, "-m", *args, "--out", str(out)])
+
+
+def _finish(proc, what, timeout=300):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+    return out
+
+
+def phase_dryrun(device, reduced, n=5):
+    """The dry runs (``launch.dryrun`` / ``launch.hillclimb``), whose
+    fake-process-group work runs in subprocesses (a process has one default
+    group; this one's phases use NCCL and gloo groups):
+
+    (a) the counts against the card: one DEIS NFE and one model-parallel
+    train step of full-width gemma-2b at batch 4, seq 256, each built by
+    ``make_workload`` on a one-rank NCCL mesh and counted on the card
+    (``count_costs``) in this process, and on fake CUDA tensors over a fake
+    one-rank group in a child: FLOPs, bytes and the collectives (counts
+    and bytes per kind and axis) must be equal. Beside the modelled terms
+    (``compute_s``, ``memory_s``, ``collective_s``: H100 SXM spec constants)
+    the step's median device-synchronised ms (CUDA events, ``n`` runs after
+    the counted one) and the fake ``peak_bytes`` beside
+    ``torch.cuda.max_memory_allocated`` of the counted run.
+
+    (b) the production mesh: ``python -m repro_torch.launch.dryrun --arch
+    gemma_2b`` at ``deis_4k`` and ``train_4k`` over a fake 256-rank group
+    (16 x 16) and ``python -m repro_torch.launch.hillclimb --pair
+    gemma_deis``: status ok, FLOPs > 0, collectives counted, every variant
+    present. Returns the phase's wall seconds."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hillclimb as H
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    dev = ["--device", device.type]
+    flags = dev + (["--reduced"] if reduced else [])
+    children = {kind: _popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-count",
+                              kind, *flags]) for kind in DRYRUN_KINDS}
+    clis = {shape: _dryrun_cli(["repro_torch.launch.dryrun", "--arch", "gemma_2b", "--shape",
+                                shape, *dev], out / f"{shape}.jsonl")
+            for shape in ("deis_4k", "train_4k")}
+    clis["hillclimb"] = _dryrun_cli(["repro_torch.launch.hillclimb", "--pair", DRYRUN_PAIR,
+                                     *dev], out / "hillclimb.json")
+    atexit.register(_stop, list(children.values()) + list(clis.values()))
+    real = {}
+    with _one_rank_group(device):
+        mesh = make_host_mesh(model=1)
+        for kind in DRYRUN_KINDS:
+            fn, args, _ = _dryrun_workload(kind, device, reduced, mesh)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            costs = D.count_costs(fn, args, mesh)
+            peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+            times = []
+            if device.type == "cuda":
+                for _ in range(n):
+                    start, end = torch.cuda.Event(enable_timing=True), \
+                        torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn(*args)
+                    end.record()
+                    torch.cuda.synchronize()
+                    times.append(start.elapsed_time(end))
+            real[kind] = dict(costs, roofline=D.roofline(costs, mesh), peak=peak,
+                              ms=float(np.median(times)) if times else None)
+            del fn, args
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    for kind in DRYRUN_KINDS:
+        fake = json.loads(_finish(children[kind], f"the fake {kind} count").strip()
+                          .splitlines()[-1])
+        got = real[kind]
+        for key in ("flops", "bytes", "collectives"):
+            if fake[key] != got[key]:
+                raise AssertionError(f"dry run {kind}: fake {key} {fake[key]} differs from "
+                                     f"the real step's {got[key]}")
+        terms = fake["roofline"]
+        modelled = sum(v for v in terms.values() if v is not None) * 1e3
+        ms = "not measured (cpu)" if got["ms"] is None else f"{got['ms']:.3f} ms"
+        peak = ("not measured (cpu)" if got["peak"] is None
+                else f"{got['peak'] / 2**30:.3f} GiB")
+        print(f"dryrun card check {kind}: flops {got['flops']:.6e}, bytes "
+              f"{got['bytes']:.6e}, collectives {got['collectives']['counts']} "
+              f"({got['collectives']['total']:.0f} bytes, by axis "
+              f"{got['collectives']['by_axis']}): fake == real; measured median {ms} "
+              f"(CUDA events, {n} runs) beside modelled compute_s "
+              f"{terms['compute_s'] * 1e3:.3f} ms, memory_s {terms['memory_s'] * 1e3:.3f} "
+              f"ms, collective_s {terms['collective_s'] * 1e3:.3f} ms (sum {modelled:.3f} "
+              f"ms); fake peak_bytes {fake['memory']['peak_bytes'] / 2**30:.3f} GiB beside "
+              f"max_memory_allocated {peak}")
+    for shape, proc in clis.items():
+        _finish(proc, f"dryrun {shape}")
+    for shape in ("deis_4k", "train_4k"):
+        (rec,) = [json.loads(line) for line in (out / f"{shape}.jsonl").read_text().splitlines()]
+        if rec["status"] != "ok" or not rec["flops_per_device"] > 0 or \
+                not sum(rec["collectives"]["counts"].values()) or rec["devices"] != 256:
+            raise AssertionError(f"dryrun gemma_2b {shape}: {rec}")
+        print(f"dryrun gemma_2b {shape} on {rec['mesh']} ({rec['devices']} fake ranks): "
+              f"flops/device {rec['flops_per_device']:.4e}, bytes/device "
+              f"{rec['bytes_per_device']:.4e}, collectives {rec['collectives']['counts']} "
+              f"by axis {rec['collectives']['by_axis']}, peak "
+              f"{rec['memory']['peak_bytes'] / 1e9:.1f} GB, roofline {rec['roofline']} "
+              f"(modelled), bottleneck {rec['bottleneck']}; {rec['compile_s']} s")
+    hc = json.loads((out / "hillclimb.json").read_text())
+    names = [it["name"] for it in hc["iterations"]]
+    want = [v[0] for v in H.PAIRS[DRYRUN_PAIR]["variants"]]
+    if names != want or hc["baseline"]["status"] != "ok" or \
+            any(it["result"]["status"] != "ok" for it in hc["iterations"]):
+        raise AssertionError(f"hillclimb {DRYRUN_PAIR}: variants {names}, want {want}")
+    print(f"hillclimb {DRYRUN_PAIR}: " + "; ".join(
+        f"{it['name']} {it['ratio_vs_baseline']}" for it in hc["iterations"]))
+    secs = time.perf_counter() - t0
+    print(f"dryrun phase: {secs:.1f} s")
+    return secs
+
+
 def _train_step_card_vs_cpu(device):
     """One train step of each arch type (dense gemma, ssm mamba2, moe
     mixtral, hybrid jamba, encdec whisper with frames, vlm paligemma with a
@@ -2647,12 +2817,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced float32 model (rehearsal)")
+    ap.add_argument("--dryrun-count", choices=DRYRUN_KINDS, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if args.dryrun_count:
+        return dryrun_count_child(args.dryrun_count, torch.device(args.device), args.reduced)
 
     device = torch.device(args.device)
     t_start = time.perf_counter()
@@ -2734,6 +2907,8 @@ def main(argv=None) -> int:
     lap("train cifar10-scorenet")
     paper = phase_paper(device, args.reduced)
     lap("paper")
+    phase_dryrun(device, args.reduced)
+    lap("dry run")
     # the CPU ranks start here, beside the card-vs-cpu phase: earlier they
     # would share the host with the timed serving phases
     cpu_ranks = start_cpu_ranks()

@@ -6,7 +6,8 @@ package). Only the fields and helpers the ported slices read are kept:
 (``is_attn_layer``/``is_moe_layer``), the MoE dispatch mode, the
 cross-entropy mode, the MoE batch pin ``act_shard_axes``,
 ``with_``/``reduced`` and ``get_config``, which loads
-``repro_torch.configs.<arch>``.
+``repro_torch.configs.<arch>``; and the dry runs' ``ShapeConfig`` and
+``INPUT_SHAPES``.
 """
 from __future__ import annotations
 
@@ -125,6 +126,24 @@ class ModelConfig:
             kw["ssm"] = dataclasses.replace(self.ssm, state_dim=16, head_dim=16, chunk_size=16)
         return self.with_(**kw)
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) workload of the dry runs."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | deis
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+    # one DEIS NFE in embedding space: the paper's own sampling workload
+    "deis_4k": ShapeConfig("deis_4k", 4096, 256, "deis"),
+}
 
 ARCH_IDS = [
     "whisper_tiny", "h2o_danube_3_4b", "paligemma_3b", "mixtral_8x7b",

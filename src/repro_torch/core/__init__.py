@@ -1,7 +1,7 @@
 """DEIS core in PyTorch: host float64 coefficient engine, solver plans, the
 single step executor, adaptive stepping and the likelihood (the
-counterpart of ``repro.core``; the deprecated ``make_solver`` alias is not
-ported)."""
+counterpart of ``repro.core``, with its deprecated ``make_solver``
+alias)."""
 from .sde import SDE, VPSDE, VESDE, SubVPSDE, get_sde
 from .schedules import get_timesteps, SCHEDULES
 from .coeffs import (ab_coefficients, ddim_coefficients_vp,
@@ -15,6 +15,7 @@ from .sampler import (Hooks, SamplerState, init_state, join_state_rows,
 from .adaptive import (AdaptiveResult, AdaptiveRK23, RetirePolicy,
                        error_ratio, step_factor)
 from .likelihood import nll_bits_per_dim
+from .solvers import make_solver
 
 __all__ = [
     "SDE", "VPSDE", "VESDE", "SubVPSDE", "get_sde",
@@ -29,4 +30,5 @@ __all__ = [
     "AdaptiveResult", "AdaptiveRK23", "RetirePolicy", "error_ratio",
     "step_factor",
     "nll_bits_per_dim",
+    "make_solver",
 ]

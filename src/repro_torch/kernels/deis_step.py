@@ -20,6 +20,13 @@ operand laid out ``[psi, C_0..C_{r-1}, s?, E_0..E_{r-1}?]``, streams its
 block of x, of every history slice and of the noise exactly once with
 coalesced loads, accumulates in float32 in the reference's order (psi*x
 first, then C_j*h_j for j = 0..r-1, then s*noise) and stores in x's dtype.
+It is compiled without floating-point contraction (``enable_fp_fusion``
+off): each product and each sum is rounded on its own, as the plain
+version's separate PyTorch ops round them, so the kernel is bitwise equal
+to the plain version. With contraction on, Triton fuses ``acc + c * h``
+into FMAs, and where the terms cancel the two differ by up to 0.8 of the
+tests' 1e-6 + 1e-6 |want| (probed over 24 input draws at R 8, M 256, D
+2048, r 4): the margin of a card test that failed once.
 With the error pair on, it also writes one partial ``max |E.h|`` per
 program into an ``(R, n_blocks)`` buffer that the wrapper reduces with
 ``amax``: max is exact in any order, so ``err`` does not depend on how the
@@ -159,7 +166,7 @@ def fused_ab_step(x, hist, psi, coeffs, *, s=None, noise=None, err_coeffs=None):
         n_rows, n_elem, n_blocks, scal.shape[1],
         R_HIST=hist.shape[0], HAS_NOISE=noise is not None, HAS_ERR=has_err,
         E_OFF=1 + hist.shape[0] + (noise is not None), BLK=BLOCK,
-        num_warps=NUM_WARPS)
+        num_warps=NUM_WARPS, enable_fp_fusion=False)
     fused_ab_step.launches += 1
     return out, (errp.amax(dim=1) if has_err else None)
 

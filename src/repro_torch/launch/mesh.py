@@ -1,5 +1,5 @@
 """Device meshes on torch.distributed (the counterpart of
-``repro.launch.mesh``, without its TPU roofline constants).
+``repro.launch.mesh``) and the H100 constants of the dry runs' roofline.
 
 Functions, not module-level constants: importing this module touches no
 process group, and no builder initialises one. Each needs the default
@@ -7,7 +7,11 @@ process group up already (``torch.distributed.init_process_group``, as
 ``launch.serve --data-parallel`` does under ``torchrun``), and each mesh
 spans every rank of it, rank order kept. The port is multi-controller: one
 process per device, every rank builds the same mesh. A mesh lies on the
-device type of the default backend: "cuda" under NCCL, "cpu" under gloo.
+device type of the default backend unless the caller names one
+(``device_type=``): "cuda" under NCCL, "cpu" under gloo and any other
+backend. The dry runs (``launch.dryrun``) name "cuda" over the ``fake``
+backend: fake tensors that claim the card, on a group of 256 or 512 ranks
+that moves nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..sharding.rules import axis_sizes
+from ..sharding.tensor_parallel import mesh_ranks
 
 
 def launched() -> bool:
@@ -64,30 +69,31 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def _mesh(shape: tuple, names: tuple):
+def _mesh(shape: tuple, names: tuple, device_type=None):
     from torch.distributed.device_mesh import DeviceMesh
     n = _world()
     if math.prod(shape) != n:
         raise ValueError(f"a {dict(zip(names, shape))} mesh needs "
                          f"{math.prod(shape)} ranks, the world has {n}")
-    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(dev, torch.arange(n).reshape(shape), mesh_dim_names=names)
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """Single pod: (16, 16) ('data', 'model'); multi-pod: (2, 16, 16)
     ('pod', 'data', 'model'). Raises unless the world has that many ranks."""
     if multi_pod:
-        return _mesh((2, 16, 16), ("pod", "data", "model"))
-    return _mesh((16, 16), ("data", "model"))
+        return _mesh((2, 16, 16), ("pod", "data", "model"), device_type)
+    return _mesh((16, 16), ("data", "model"), device_type)
 
 
-def make_host_mesh(model: int = 1):
+def make_host_mesh(model: int = 1, device_type=None):
     """('data', 'model') over every rank, ``model`` of them a data group."""
     n = _world()
     if n % model:
         raise ValueError(f"model={model} does not divide the {n} ranks")
-    return _mesh((n // model, model), ("data", "model"))
+    return _mesh((n // model, model), ("data", "model"), device_type)
 
 
 def make_request_mesh(data: int | None = None):
@@ -101,8 +107,7 @@ def make_request_mesh(data: int | None = None):
 def mesh_fingerprint(mesh) -> tuple:
     """Hashable identity of a mesh for executor-cache keys: axis names and
     sizes, then the ranks in mesh order."""
-    return (tuple(axis_sizes(mesh).items()),
-            tuple(int(r) for r in mesh.mesh.flatten().tolist()))
+    return (tuple(axis_sizes(mesh).items()), tuple(int(r) for r in mesh_ranks(mesh)))
 
 
 # How long a rank waits in a control-group collective before it raises. An
@@ -122,7 +127,7 @@ def control_group(mesh):
     groups = _CONTROL.setdefault(dist.distributed_c10d._get_default_group(), {})
     key = mesh_fingerprint(mesh)
     if key not in groups:
-        groups[key] = dist.new_group(mesh.mesh.flatten().tolist(), backend="gloo",
+        groups[key] = dist.new_group(mesh_ranks(mesh), backend="gloo",
                                      timeout=CONTROL_TIMEOUT)
     return groups[key]
 
@@ -130,3 +135,15 @@ def control_group(mesh):
 def data_group(mesh):
     """The group of a 1-axis mesh (NCCL between cards, gloo on the CPU)."""
     return mesh.get_group(mesh.mesh_dim_names[0])
+
+
+# H100 SXM constants of the dry runs' roofline (``launch.dryrun``), per GPU:
+# spec-sheet values (NVIDIA H100 and DGX H100 data sheets), not
+# measurements. PEAK_FLOPS_BF16 and HBM_BW are the figures the kernel
+# bounds in PERF.md use.
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12              # bytes/s, HBM3
+HBM_BYTES = 80e9              # bytes of device memory
+NVLINK_BW = 450e9             # bytes/s each way, NVLink 4 (18 links)
+GPUS_PER_NODE = 8             # a DGX H100 node
+NIC_BW = 50e9                 # bytes/s, one 400 Gb/s NIC per GPU

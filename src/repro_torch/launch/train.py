@@ -87,12 +87,15 @@ def main(argv=None):
         dist.destroy_process_group()    # a rank that raised fails the others' collectives
 
 
-def init_on_mesh(cfg, seed: int, device, mesh) -> dict:
+def init_on_mesh(cfg, seed: int, device, mesh, fsdp: bool = False,
+                 ff2d: bool = False) -> dict:
     """``init_params(cfg, seed, device)`` placed on ``mesh`` by
-    ``param_specs``, each layer and top-level entry as soon as it is made:
-    a rank never holds more of the model whole than its largest piece."""
+    ``param_specs`` (with its ``fsdp`` and ``ff2d`` levers), each layer and
+    top-level entry as soon as it is made: a rank never holds more of the
+    model whole than its largest piece."""
     return T.init_params(cfg, seed, device, place=lambda path, tree: R.device_put(
-        tree, R.to_shardings(R.param_specs(tree, mesh, path=path), mesh)))
+        tree, R.to_shardings(R.param_specs(tree, mesh, fsdp=fsdp, ff2d=ff2d, path=path),
+                             mesh)))
 
 
 def _train(args, device, mesh) -> None:

@@ -181,13 +181,13 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
     the cache (None unless ``cache`` or ``return_kv``).
 
     On a mesh (placed weights) each rank runs its query heads
-    (:func:`head_block`) and ``wo`` makes the output whole; a full sequence
-    on the plain route only (the sharded train step).
+    (:func:`head_block`) and ``wo`` makes the output whole, on the plain
+    route only. A cache then holds the kv heads this rank computes with:
+    its block of them where the kv head count divides 'model', else all
+    (``training.steps.cache_to_compute``).
     """
-    if TP.split_of(params["wq"]) is not None and (cache is not None or return_kv
-                                                   or use_kernels):
-        raise ValueError("attention on a mesh runs a full sequence on the plain "
-                         "route (the sharded train step): no cache, no kernel")
+    if TP.split_of(params["wq"]) is not None and use_kernels:
+        raise ValueError("attention on a mesh runs on the plain route: no kernel")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     n_rep = cfg.n_heads // cfg.n_kv_heads

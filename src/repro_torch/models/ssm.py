@@ -19,7 +19,9 @@ over 'model' on its output and ``out_proj`` on its input, ``conv_w`` /
 ``conv_b`` on their channels. The in-projection's blocks cut across its
 ``[z, xBC, dt]`` parts, so its output is gathered; the convolution runs on
 this rank's channels and is gathered again; the scan and the gated norm
-run whole on every model rank, and ``out_proj`` takes its block of y.
+run whole on every model rank, and ``out_proj`` takes its block of y. A
+decode cache on a mesh holds this rank's conv channels and the whole
+state.
 """
 from __future__ import annotations
 
@@ -159,9 +161,8 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
 
     conv = TP.split_of(params["conv_w"])
-    if conv is not None and (cache is not None or use_kernels):
-        raise ValueError("the mixer on a mesh runs a full sequence on the plain route "
-                         "(the sharded train step): no cache, no kernel")
+    if conv is not None and use_kernels:
+        raise ValueError("the mixer on a mesh runs on the plain route: no kernel")
     channels = conv is not None and conv.dim is not None
     if channels:
         xbc = TP.split_model(xbc, -1, conv.ax)

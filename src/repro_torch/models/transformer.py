@@ -248,7 +248,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
                  causal, cache=None, cache_index=None, cross=None,
                  collect_kv=False, valid_len=None, use_kernels=False,
-                 sharded=False):
+                 sharded=False, cross_out=None):
     """Layer ``i`` (the reference's ``_apply_block`` for one slot): the
     mixer and its residual; for a decoder layer of an encdec arch, given
     ``cross`` (its ``{"k", "v"}``), ``norm_x`` and cross-attention with its
@@ -256,14 +256,17 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
     ``aux``). Returns ``(h, the layer's cache)``.
 
     ``sharded``: the layer's parameters are on a mesh; they are placed
-    here, just before the layer runs (see ``forward``), and ``cross`` is
-    the encoder's output, projected here with the placed ``cross``
-    weights."""
+    here, just before the layer runs (see ``forward``), and a ``cross``
+    that is the encoder's output (a tensor, not a ``{"k", "v"}`` dict) is
+    projected here with the placed ``cross`` weights; ``cross_out``, a
+    list, then receives the projection (prefill's cross cache)."""
     mixer, mlpk = _layer_kind(cfg, i)
     if sharded:
         bp = TP.place_tree(bp)
-        if cross is not None:
+        if cross is not None and not isinstance(cross, dict):
             cross = _cross_kv(cfg, bp, cross)
+            if cross_out is not None:
+                cross_out.append(cross)
     hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
     if mixer == "ssm":
         out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=cache,
@@ -358,21 +361,23 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     backward pass; the reference's ``jax.checkpoint`` of a scan block).
 
     On a mesh (DTensor parameters placed by the spec rules: the sharded
-    train step) the inputs are this rank's rows of the batch, and the mode
-    is "train" on the plain route. Each layer's parameters are placed just
-    before it runs: their compute layout is the storage layout without the
-    batch axes (an fsdp weight is gathered over 'data' for its layer only:
-    the reference's ZeRO-3 ``block_constraint``); under ``remat`` the
-    placement is re-run in the backward. The eps head's output comes back
-    whole; the logits come back split over 'model' on the vocabulary when
-    the head is, with ``logits_split`` (the head's split) beside them."""
+    steps) the inputs are this rank's rows of the batch, on the plain
+    route. Each layer's parameters are placed just before it runs: their
+    compute layout is the storage layout without the batch axes (an fsdp
+    weight is gathered over 'data' for its layer only: the reference's
+    ZeRO-3 ``block_constraint``); under ``remat`` the placement is re-run
+    in the backward. A cache, in and out, is this rank's local tensors in
+    the compute layout (``training.steps.cache_to_compute``). The eps
+    head's output comes back whole; the logits come back split over
+    'model' on the vocabulary when the head is, with ``logits_split`` (the
+    head's split) beside them."""
     _check_arch(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     sharded = TP.on_mesh(params["embed"])
-    if sharded and (mode != "train" or use_kernels):
-        raise ValueError("a model on a mesh runs train mode on the plain route (the "
-                         f"sharded train step), got mode {mode!r}, use_kernels {use_kernels}")
+    if sharded and use_kernels:
+        raise ValueError("a model on a mesh runs on the plain route: use_kernels "
+                         "must be False")
     dtype = _dtype(cfg)
     if causal is None:
         causal = cfg.objective != "diffusion"
@@ -419,11 +424,13 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
         c = cache["blocks"][i] if cache is not None else None
         cross = None
         if "cross" in bp:
-            if sharded:        # projected in the layer, from its placed weights
+            if mode == "decode":
+                cross = cache["cross"][i]
+            elif sharded:      # projected in the layer, from its placed weights
                 cross = enc_out
             else:
-                cross = cache["cross"][i] if mode == "decode" else _cross_kv(cfg, bp, enc_out)
-            if new_cross is not None:
+                cross = _cross_kv(cfg, bp, enc_out)
+            if new_cross is not None and not sharded:
                 new_cross.append(cross)
         if remat:
             h, layer_aux = checkpoint(_remat_layer, cfg, i, bp, h, positions, cross,
@@ -435,7 +442,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             h, nc = _apply_layer(cfg, i, bp, h, positions, aux, causal=causal, cache=c,
                                  cache_index=cache_index, cross=cross,
                                  collect_kv=collect_kv, valid_len=valid_len,
-                                 use_kernels=use_kernels, sharded=sharded)
+                                 use_kernels=use_kernels, sharded=sharded,
+                                 cross_out=new_cross)
         if new_blocks is not None:
             new_blocks.append(nc if nc is not None else c)
 

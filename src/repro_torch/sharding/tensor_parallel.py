@@ -91,10 +91,17 @@ class MeshAxes:
         names = tuple(names)
         if len(names) == 1:
             return self.groups[names[0]]
-        if names == self.names and \
-                self.mesh.mesh.flatten().tolist() == list(range(dist.get_world_size())):
+        if names == self.names and mesh_ranks(self.mesh) == list(range(dist.get_world_size())):
             return dist.group.WORLD
         raise NotImplementedError(f"no process group over the mesh axes {names}")
+
+
+def mesh_ranks(mesh) -> list:
+    """The ranks of ``mesh`` in mesh order (read outside any
+    ``FakeTensorMode``: the mesh's rank tensor is a real one)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return mesh.mesh.flatten().tolist()
 
 
 def axes(mesh) -> MeshAxes:
@@ -192,8 +199,10 @@ def _block(x, dim: int, n: int, i: int):
 def _reduce_scatter(x, dim: int, group, n: int, i: int):
     """The sum over ``group`` of ``x``, this rank's block ``i`` of ``n``
     along ``dim`` (NCCL's reduce-scatter; an all-reduce and a cut on gloo,
-    which has none)."""
-    if dist.get_backend(group) != "nccl":
+    which has none). A ``fake`` group (the dry runs) does what the real
+    backend of ``x``'s device would."""
+    backend = dist.get_backend(group)
+    if not (backend == "nccl" or (backend == "fake" and x.is_cuda)):
         return _block(_all_reduce(x, group), dim, n, i)
     xm = x.movedim(dim, 0).contiguous()
     out = xm.new_empty((xm.shape[0] // n,) + tuple(xm.shape[1:]))
@@ -380,8 +389,8 @@ def _pad(g, dim: int, size: int, lo: int):
     return out
 
 
-# storage pointer -> the gathered tensor (weakly held); its ``_regather``
-# makes it again
+# storage (its StorageImpl, which a fake tensor has too) -> the gathered
+# tensor (weakly held); its ``_regather`` makes it again
 _GATHERED: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 
@@ -394,7 +403,7 @@ class _Relayout(Function):
             return local.view_as(local)
         held = local.detach()
         out._regather = lambda: _relayout(held, ax, src, dst, shape)
-        _GATHERED[out.untyped_storage().data_ptr()] = out
+        _GATHERED[out.untyped_storage()._cdata] = out
         return out
 
     @staticmethod
@@ -413,8 +422,8 @@ class _Regathered:
 def _pack(t):
     if type(t) is not torch.Tensor or t.device.type == "meta":
         return t
-    base = _GATHERED.get(t.untyped_storage().data_ptr())
-    if base is None or base.untyped_storage().data_ptr() != t.untyped_storage().data_ptr():
+    base = _GATHERED.get(t.untyped_storage()._cdata)
+    if base is None or base.untyped_storage()._cdata != t.untyped_storage()._cdata:
         return t
     return _Regathered(base._regather, t)
 

@@ -1,4 +1,4 @@
-"""Train, prefill and decode steps (the counterpart of
+"""Train, prefill, decode and DEIS sampling steps (the counterpart of
 ``repro.training.steps``).
 
 ``train_step``: one optimizer step on the configured objective
@@ -21,7 +21,9 @@ parameters. A weight stored split over 'data' (fsdp) is gathered for its
 layer, dropped after it and gathered again in the backward: the ZeRO-3
 profile, which the reference asks for with a ``block_constraint`` of each
 layer's model-only specs. ``make_train_step`` accepts that constraint
-(and refuses any other); the port needs it nowhere else.
+(and refuses any other); the port needs it nowhere else. The prefill,
+decode and DEIS steps run on a mesh too (the dry runs, ``launch.dryrun``):
+each rank its rows, the caches laid out by ``rules.cache_specs``.
 """
 from __future__ import annotations
 
@@ -186,12 +188,22 @@ def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch) -> (last-position logits (B, vocab),
     cache)`` over ``batch["tokens"]`` (B, S), causal, with
     ``batch["prefix"]`` (vlm) and ``batch["frames"]`` (encdec) passed on
-    where present."""
+    where present.
+
+    On a mesh (DTensor parameters and batch) each rank runs its rows; the
+    logits come back as a DTensor (rows over the batch axes, the vocabulary
+    over 'model' where the head splits it) and the cache as DTensors laid
+    out by ``rules.cache_specs`` (:func:`cache_to_storage`)."""
     def prefill_step(params, batch):
+        batch, rows = _local_batch(cfg, batch)
         kw = {k: batch[k] for k in ("prefix", "frames") if k in batch}
         out = T.forward(params, cfg, tokens=batch["tokens"], mode="prefill",
                         causal=True, **kw)
-        return out["logits"][:, -1], out["cache"]
+        if rows is None:
+            return out["logits"][:, -1], out["cache"]
+        mesh = params["embed"].device_mesh
+        return (_logits_out(out, mesh, rows[2]),
+                cache_to_storage(out["cache"], cfg, mesh, rows[2]))
     return prefill_step
 
 
@@ -199,9 +211,180 @@ def make_decode_step(cfg: ModelConfig):
     """``decode_step(params, cache, token (B, 1), cache_index: int) ->
     (logits (B, vocab), cache)``; attention caches are written in place.
     ``cache_index`` counts a vlm prefix; an encdec cache carries the cross
-    k and v from prefill."""
+    k and v from prefill.
+
+    On a mesh the cache is DTensors laid out by ``rules.cache_specs`` and
+    ``token`` a DTensor (rows over the batch axes, or whole): each cache
+    leaf is brought to the layout the layer computes in
+    (:func:`cache_to_compute`: a gather over 'model' where the spec splits
+    a dim the layer holds whole), and the new cache comes back in the
+    spec's layout."""
     def decode_step(params, cache, token, cache_index):
-        out = T.forward(params, cfg, tokens=token, mode="decode", causal=True,
-                        cache=cache, cache_index=cache_index)
-        return out["logits"][:, -1], out["cache"]
+        if not TP.is_sharded(token):
+            out = T.forward(params, cfg, tokens=token, mode="decode", causal=True,
+                            cache=cache, cache_index=cache_index)
+            return out["logits"][:, -1], out["cache"]
+        local, (_, _, rows) = TP.local_rows(token)
+        mesh = params["embed"].device_mesh
+        out = T.forward(params, cfg, tokens=local, mode="decode", causal=True,
+                        cache=cache_to_compute(cache, cfg), cache_index=cache_index)
+        return (_logits_out(out, mesh, rows),
+                cache_to_storage(out["cache"], cfg, mesh, rows, like=cache))
     return decode_step
+
+
+def make_deis_sample_step(cfg: ModelConfig, sde: Optional[SDE] = None):
+    """One DEIS NFE (paper Eq. 14): ``deis_step(params, x, eps_hist, t,
+    psi_k, coeff_row) -> (x_next, hist)``, the eps-net at ``(x, t)``, then
+    ``hist = cat([eps[None], eps_hist[:-1]])`` and ``x_next = psi_k x +
+    tensordot(coeff_row, hist)``: the reference's update, in plain tensor
+    operations (:func:`_deis_update`). ``x`` (B, S, D), ``eps_hist``
+    (order + 1, B, S, D), ``t``, ``psi_k`` 0-d and ``coeff_row`` (order +
+    1,) tensors; runs without autograd.
+
+    On a mesh ``x`` and ``eps_hist`` are DTensors in the dry run's
+    ``deis_shard`` layout: the batch over the data axes and, over 'model',
+    the last dim ("dmodel") or the sequence ("seq"). ``x`` is gathered over
+    'model' into the eps-net's own layout (rows over data, whole over
+    'model'); each rank keeps only its block of ``eps``, so the update and
+    the history stay local and come back in ``x``'s layout. The port has
+    no sequence-parallel attention: "seq" changes only that boundary, the
+    eps-net runs the same either way. ``sde`` is the reference's argument
+    (its schedule is in ``psi_k`` and ``coeff_row``)."""
+    del sde
+
+    @torch.no_grad()
+    def deis_step(params, x, eps_hist, t, psi_k, coeff_row):
+        if not TP.is_sharded(x):
+            eps = DLM.make_eps_fn(params, cfg)(x, t)
+            hist = torch.cat([eps[None], eps_hist[:-1]], dim=0)
+            return _deis_update(x, hist, psi_k, coeff_row), hist
+        ax = TP.axes(x.device_mesh)
+        layout = TP._layout_of_placements(x.placements, x.ndim, ax)
+        split = [d for d, axes in enumerate(layout) if "model" in axes]
+        xl, hl = x.to_local(), eps_hist.to_local()
+        whole = xl
+        for d in split:
+            whole = TP._all_gather(whole, d, ax.groups["model"], ax.model)
+        eps = DLM.make_eps_fn(params, cfg)(whole, t)
+        for d in split:
+            eps = TP._block(eps, d, ax.model, ax.model_rank)
+        hist = torch.cat([eps[None], hl[:-1]], dim=0)
+        return (TP.as_shard(_deis_update(xl, hist, psi_k, coeff_row), x),
+                TP.as_shard(hist, eps_hist))
+
+    return deis_step
+
+
+def _deis_update(x, hist, psi_k, coeff_row):
+    """``psi_k x + tensordot(coeff_row, hist)`` in the promoted dtype of
+    ``x`` and the coefficients, as the reference's arrays promote (a float32
+    coefficient makes a bfloat16 state's update float32)."""
+    dt = torch.promote_types(x.dtype, torch.promote_types(psi_k.dtype, coeff_row.dtype))
+    return psi_k.to(dt) * x.to(dt) + torch.tensordot(coeff_row.to(dt), hist.to(dt), dims=1)
+
+
+# ------------------------------------------------------- caches on a mesh
+def _compute_layout(path: tuple, shape: tuple, lead: tuple, cfg: ModelConfig, ax) -> tuple:
+    """The layout a layer computes a cache leaf in (per dim, the mesh axes
+    splitting it): rows over ``lead``; attention ``k`` / ``v`` (B, S, KV,
+    hd) split over 'model' on the kv heads where their count divides it,
+    else whole; the SSM ``conv`` (B, K-1, C) on its channels where C
+    divides it (as ``conv_w`` is); the SSM ``state`` whole (the scan runs
+    whole on every model rank)."""
+    out = [lead] + [()] * (len(shape) - 1)
+    if path[-1] in ("k", "v") and cfg.n_kv_heads % ax.model == 0:
+        out[2] = ("model",)
+    elif path[-1] == "conv" and shape[-1] % ax.model == 0:
+        out[-1] = ("model",)
+    return tuple(out)
+
+
+def _map_cache(fn, cache, path=()):
+    """``fn(path, leaf)`` over a cache's tensors (a cross entry's ``k0``
+    dropped)."""
+    if isinstance(cache, dict):
+        return {k: _map_cache(fn, v, path + (k,)) for k, v in cache.items() if k != "k0"}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(_map_cache(fn, v, path + (i,)) for i, v in enumerate(cache))
+    return fn(path, cache)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _dtensor(local, mesh, layout: tuple, shape: tuple):
+    """``local``, this rank's block in ``layout`` of a ``shape`` tensor, as
+    a DTensor."""
+    from torch.distributed.tensor import DTensor
+    from ..sharding import rules as R
+    spec = R.P(*(None if not a else a if len(a) > 1 else a[0] for a in layout))
+    return DTensor.from_local(local, mesh, R.to_placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def cache_to_compute(cache, cfg: ModelConfig):
+    """A cache of DTensors (laid out by ``rules.cache_specs``) as the local
+    tensors the layers compute with (:func:`_compute_layout`): a leaf whose
+    spec splits a dim over 'model' that the layer holds whole is gathered
+    over 'model'. A cross-attention entry whose kv heads are split gets
+    ``k0``, its first kv head."""
+    def to_compute(path, t):
+        ax = TP.axes(t.device_mesh)
+        src = TP._layout_of_placements(t.placements, t.ndim, ax)
+        dst = _compute_layout(path, tuple(t.shape), src[0], cfg, ax)
+        return TP._relayout(t.to_local(), ax, src, dst, tuple(t.shape))
+
+    out = _map_cache(to_compute, cache)
+    for entry in out.get("cross", []):
+        n = entry["k"].shape[2]
+        if n < cfg.n_kv_heads:
+            entry["k0"] = TP.axes(cache["cross"][0]["k"].device_mesh).model_rank * n
+    return out
+
+
+def cache_to_storage(cache, cfg: ModelConfig, mesh, rows: int, like=None):
+    """A cache of local tensors in the compute layout, over a ``rows``-row
+    batch, as DTensors laid out as ``like``'s leaves are, or by
+    ``rules.cache_specs``: each leaf keeps its block (a cut, never a
+    collective: the spec splits at least the dims the layer does)."""
+    from ..sharding import rules as R
+    ax = TP.axes(mesh)
+    lead = ax.batch if rows % ax.n_batch == 0 else ()
+
+    def whole(path, t):       # a meta tensor of the leaf's whole shape
+        dst = _compute_layout(path, tuple(t.shape), lead, cfg, ax)
+        return torch.empty((rows,) + tuple(n * ax.size(a) for n, a in
+                                           zip(t.shape[1:], dst[1:])), device="meta")
+
+    shapes = _map_cache(whole, cache)
+    if like is None:
+        specs = R.cache_specs(shapes, mesh)
+        layout = lambda path, n: tuple(
+            () if e is None else e if isinstance(e, tuple) else (e,) for e in _at(specs, path))
+    else:
+        layout = lambda path, n: TP._layout_of_placements(
+            _at(like, path).placements, n, ax)
+
+    def to_storage(path, t):
+        shape = tuple(_at(shapes, path).shape)
+        src = _compute_layout(path, tuple(t.shape), lead, cfg, ax)
+        dst = layout(path, len(shape))
+        return _dtensor(TP._relayout(t, ax, src, dst, shape), mesh, dst, shape)
+
+    return _map_cache(to_storage, cache)
+
+
+def _logits_out(out, mesh, rows: int):
+    """The last position's logits of a forward on a mesh as a DTensor:
+    rows over the batch axes (where the batch was split), the vocabulary
+    over 'model' where the head splits it."""
+    ax = TP.axes(mesh)
+    lg = out["logits"][:, -1]
+    split = "logits_split" in out
+    layout = (ax.batch if rows % ax.n_batch == 0 else (), ("model",) if split else ())
+    return _dtensor(lg, mesh, layout, (rows, lg.shape[-1] * (ax.model if split else 1)))

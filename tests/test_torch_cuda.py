@@ -6,7 +6,9 @@ import only torch and the port, so they run where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card they skip. Tolerances: K1 float32 rtol = atol = 1e-6 (FMA
-contraction and summation order), stacked rows held bitwise; K2 and K3 at
+contraction and summation order), stacked rows held bitwise, and bitwise
+to the plain version at the served shape (K1 is built without FMA
+contraction); K2 and K3 at
 the JAX kernel tests' own tolerances (K2 2e-5 float32 and 2e-2 bf16, K3
 2e-4 float32 and 5e-2 bf16: other summation orders, a bf16 rounding of the
 output that a last-bit difference can flip). bf16 operands run K2's and
@@ -24,7 +26,8 @@ The request-axis slice's card tests: the sharded engine on a one-rank NCCL
 group bitwise equal to the unsharded engine on the card, and expert-parallel
 MoE there within the reference's bounds (2e-4 output, 1e-3 load-balance).
 The model-parallel slice's: the sharded train step on a one-rank NCCL host
-mesh bitwise equal to the unsharded step on the card."""
+mesh bitwise equal to the unsharded step on the card. The dry runs': a
+step's counts on the card equal the same step's on fake CUDA tensors."""
 import sys
 from pathlib import Path
 
@@ -68,6 +71,24 @@ def test_triton_fused_ab_step_matches_plain(cuda, r, R, m, d):
         o_i, e_i = K.fused_ab_step(x[sl].contiguous(), hist[:, sl].contiguous(), psi[sl],
                                    C[sl], **{k: v[sl] for k, v in kw.items()})
         assert torch.equal(o_i[0], out[i]) and torch.equal(e_i[0], err[i])
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("r", [1, 4])
+def test_triton_fused_ab_step_bitwise_plain(cuda, r, seed):
+    """K1 is compiled without FMA contraction, so it rounds each product and
+    sum as the plain version does: bitwise equal to it in float32, with the
+    noise and the error pair, whatever the draws (here from seeded
+    generators at the served shape, R 8, M 256, D 2048)."""
+    g = torch.Generator(device=cuda).manual_seed(1000 * r + seed)
+    n = lambda *s: torch.randn(s, generator=g, device=cuda)
+    u = lambda *s: torch.rand(s, generator=g, device=cuda)
+    R, m, d = 8, 256, 2048
+    x, hist, psi, C = n(R, m, d), n(r, R, m, d), u(R) + 0.5, n(R, r)
+    kw = dict(s=u(R) * 0.2, noise=n(R, m, d), err_coeffs=n(R, r) * 0.1)
+    out, err = K.fused_ab_step(x, hist, psi, C, **kw)
+    want, want_err = ref.fused_ab_step_ref(x, hist, psi, C, **kw)
+    assert torch.equal(out, want) and torch.equal(err, want_err)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -407,3 +428,35 @@ def test_cuda_sharded_train_step_one_rank(one_rank_nccl):
     (m0, p0), (m1, p1) = runs
     assert m1 == m0
     assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.parametrize("kind", ["train", "deis"])
+def test_cuda_dryrun_fake_counts_equal_a_real_step(one_rank_nccl, kind):
+    """The dry run's accounting (``launch.dryrun.count_costs``) of one step
+    of reduced gemma built by ``make_workload`` on a one-rank NCCL host
+    mesh, on the card, and of the same step on fake CUDA tensors over a
+    fake one-rank group: the same FLOPs, bytes and collectives."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    shape = ShapeConfig(kind, 16, 4, kind)
+    mesh = make_host_mesh(model=1)
+    fn, args, _ = D.make_workload(cfg, shape, mesh, device="cuda")
+    real = D.count_costs(fn, args, mesh)
+    dist.destroy_process_group()        # the fixture's group; a process has one default
+    D.init_fake_world(1)
+    try:
+        fake_mesh = make_host_mesh(model=1, device_type="cuda")
+        with FakeTensorMode():
+            fn, args, _ = D.make_workload(cfg, shape, fake_mesh, device="cuda")
+            fake = D.count_costs(fn, args, fake_mesh)
+    finally:
+        dist.destroy_process_group()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))   # for the teardown
+    assert real["flops"] > 0 and real["bytes"] > 0
+    for key in ("flops", "bytes", "collectives"):
+        assert fake[key] == real[key], key

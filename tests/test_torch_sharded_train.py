@@ -34,7 +34,11 @@ tree, each shard exactly its block.
 
 The parent process runs the reference and the port's unsharded steps while
 the ranks (spawned once per world size, no JAX in them) run theirs; the
-ranks write their results, checked here one case each.
+ranks write their results, checked here one case each. On (2, 2) the
+ranks also run one DEIS NFE with its state split over 'model' on d_model
+and on the sequence (the dry runs' ``deis_shard``), and count one reduced
+train step through the dry run's workload, held against the same step on
+a fake (2, 2) group.
 """
 import concurrent.futures as futures
 import contextlib
@@ -56,7 +60,9 @@ from repro.models import transformer as RT
 from repro.training import checkpoint as RC
 from repro.training import optimizer as RO
 from repro.training import steps as RS
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch import dryrun as DRY
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import main as train_main
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 from repro_torch.training import optimizer as PO
@@ -69,6 +75,7 @@ B, S, STEPS = 4, 16, 2
 STAT = dict(rtol=1e-5, atol=1e-7)   # losses and grad norms
 PARAM_ATOL = 1e-4                    # params after 2 AdamW steps (below)
 PRINT_TOL = {"loss": 1.5e-4, "gnorm": 1.5e-3}   # one unit of the printed digit
+COUNT_SHAPE = ShapeConfig("train", S, B, "train")   # the counted step (dry-run accounting)
 SPAWN_TIMEOUT_S = 600   # a hang guard: the ranks take ~40 s alone, 4x that on a busy host
 # name -> (arch, objective, config overrides)
 CASES = {
@@ -105,6 +112,7 @@ torch.set_num_threads(1)
 faulthandler.dump_traceback_later(float(sys.argv[7]), exit=True)   # a hang shows where
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import device_put_sharded
+from repro_torch.launch import dryrun as DRY
 from repro_torch.launch import train as TRAIN
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
@@ -324,6 +332,68 @@ for shape in IN["meshes"][str(world)]:
             assert TP.is_sharded(leaf)
     check(f"{tag}/restore_reference_checkpoint", restore_reference_checkpoint)
 
+    def deis_layouts():
+        """One DEIS NFE with x and its history split over 'model' on d_model
+        and on the sequence: the same x_next and history, bitwise, within
+        the float32 tolerance of the unsharded step."""
+        c, d = IN["cases"]["gemma_diffusion"], IN["deis"]
+        params = R.device_put(c["params"], R.to_shardings(R.param_specs(c["params"], mesh), mesh))
+        step = PS.make_deis_sample_step(cfg_of("gemma_diffusion"))
+        ba = R.batch_axes(mesh)
+        got = {}
+        for name, (xs, hs) in {"dmodel": (R.P(ba, None, "model"), R.P(None, ba, None, "model")),
+                               "seq": (R.P(ba, "model", None), R.P(None, ba, "model", None))}.items():
+            x = R.device_put(d["x"], R.NamedSharding(mesh, xs))
+            hist = R.device_put(d["hist"], R.NamedSharding(mesh, hs))
+            xn, hn = step(params, x, hist, *d["scalars"])
+            assert xn.placements == x.placements and hn.placements == hist.placements
+            got[name] = (xn.full_tensor(), hn.full_tensor())
+        for a, b in zip(got["seq"], got["dmodel"]):
+            assert torch.equal(a, b)
+        for a, b in zip(got["dmodel"], d["want"]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    check(f"{tag}/deis_layouts", deis_layouts)
+
+    def prefill_decode(case):
+        """Prefill, then one decode step against the prefill's cache, on the
+        mesh (params, batch and cache as DTensors) against the same steps
+        unsharded: logits and every cache leaf within float32 tolerance."""
+        c = IN["cases"][case]
+        cfg = cfg_of(case).with_(objective="ar")
+        host = c["batches"][0]
+        whole = {k: torch.from_numpy(np.asarray(v)) for k, v in host.items()}
+        params = R.device_put(c["params"], R.to_shardings(R.param_specs(c["params"], mesh), mesh))
+        batch = device_put_sharded(host, R.to_shardings(R.batch_specs(host, mesh), mesh), "cpu")
+        token = whole["tokens"][:, -1:]
+        token_dt = R.device_put(token, R.NamedSharding(mesh, R.batch_specs({"t": token}, mesh)["t"]))
+        index = whole["tokens"].shape[1] - 1 + (cfg.prefix_tokens if "prefix" in whole else 0)
+        prefill, decode = PS.make_prefill_step(cfg), PS.make_decode_step(cfg)
+        with torch.no_grad():
+            want = [prefill(c["params"], whole)]
+            got = [prefill(params, batch)]
+            want.append(decode(c["params"], want[0][1], token, index))
+            got.append(decode(params, got[0][1], token_dt, index))
+        full = lambda tree: tree_map(lambda t: t.full_tensor() if TP.is_sharded(t) else t, tree)
+        for (g_lg, g_cache), (w_lg, w_cache) in zip(got, want):
+            torch.testing.assert_close(g_lg.full_tensor(), w_lg, rtol=1e-5, atol=1e-5)
+            g, w = tree_leaves(full(g_cache)), tree_leaves(w_cache)
+            assert len(g) == len(w)
+            for a, b in zip(g, w):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for case in IN["cases"]:
+        check(f"{tag}/prefill_decode_{case}", lambda case=case: prefill_decode(case))
+
+    def fake_equals_real():
+        """Rank 0's counts of one reduced train step through the dry run's
+        workload, for the parent to hold against a fake (2, 2) run's."""
+        fn, args, _ = DRY.make_workload(cfg_of("gemma_diffusion"), IN["count_shape"], mesh,
+                                        device="cpu")
+        got = DRY.count_costs(fn, args, mesh)
+        if rank == 0:
+            torch.save({k: got[k] for k in ("flops", "bytes", "collectives")},
+                       os.path.join(out, "counts.pt"))
+    check(f"{tag}/fake_equals_real", fake_equals_real)
+
 gathered = [None] * world
 dist.all_gather_object(gathered, results)
 if rank == 0:
@@ -399,6 +469,17 @@ def _step_lines(text: str) -> dict:
             for m in re.finditer(r"^step +(\d+) loss=(\S+) gnorm=(\S+)", text, re.M)}
 
 
+def _deis_inputs(params, pcfg):
+    """x, history and scalars of one DEIS NFE (seeded numpy), and the port's
+    unsharded step's x_next and history on them."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((B, S, pcfg.d_model)).astype(np.float32))
+    hist = torch.from_numpy(rng.standard_normal((4, B, S, pcfg.d_model)).astype(np.float32))
+    scalars = (torch.tensor(0.5), torch.tensor(0.9), torch.tensor([0.4, 0.3, 0.2, 0.1]))
+    want = PS.make_deis_sample_step(pcfg)(params, x, hist, *scalars)
+    return {"x": x, "hist": hist, "scalars": scalars, "want": want}
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Spawn both worlds, compute the unsharded expectations meanwhile, and
@@ -411,6 +492,9 @@ def run(tmp_path_factory):
         inputs["cases"][case] = {"spec": CASES[case],
                                  "params": params_from_numpy(_np(rp), pcfg, "cpu"),
                                  "batches": batches, "draws": draws}
+    inputs["deis"] = _deis_inputs(inputs["cases"]["gemma_diffusion"]["params"],
+                                  setups["gemma_diffusion"][1])
+    inputs["count_shape"] = COUNT_SHAPE
     # the unsharded launcher's run (resumed by the (2, 2) launcher) and the
     # reference's checkpoint of the reference's 2 steps (restored by the ranks)
     unsharded = tmp / "unsharded"
@@ -492,9 +576,38 @@ def test_levers_equal_unsharded(run, name):
 
 @pytest.mark.parametrize("name", ["shard_bytes", "shard_bytes_fsdp", "shard_bytes_ff2d",
                                   "pin_refused", "constraint_refused", "init_on_mesh",
-                                  "restore_reference_checkpoint"])
+                                  "restore_reference_checkpoint", "deis_layouts"])
 def test_rank_checks(run, name):
     _result(run, 4, f"2x2/{name}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_prefill_and_decode_equal_unsharded(run, case):
+    """The prefill and decode steps on the (2, 2) mesh (the dry runs' paths;
+    caches laid out by ``cache_specs``) give the unsharded steps' logits and
+    caches: kv heads split (whisper's cross cache, its ``k0``) or gathered
+    (gemma's one kv head), the SSM conv split and its state gathered."""
+    _result(run, 4, f"2x2/prefill_decode_{case}")
+
+
+def test_fake_counts_equal_a_real_step(run):
+    """The dry run's counts of one reduced train step on a fake (2, 2) group
+    equal rank 0's of the same step on the gloo (2, 2) mesh: FLOPs, bytes,
+    and the collectives' counts and bytes per kind and per axis."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    _result(run, 4, "2x2/fake_equals_real")
+    real = torch.load(run["tmp"] / "w4" / "counts.pt", weights_only=False)
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    DRY.init_fake_world(4)
+    try:
+        mesh = make_host_mesh(model=2)
+        with FakeTensorMode():
+            fn, args, _ = DRY.make_workload(cfg, COUNT_SHAPE, mesh, device="cpu")
+            fake = DRY.count_costs(fn, args, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert real["flops"] > 0 and real["collectives"]["total"] > 0
+    assert {k: fake[k] for k in ("flops", "bytes", "collectives")} == real
 
 
 def test_sharded_launcher_prints_the_unsharded_lines(run):
