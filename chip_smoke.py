@@ -198,6 +198,13 @@ Phases (any failure raises and the script exits non-zero):
    subprocesses: gemma-2b at ``deis_4k`` and ``train_4k`` (status ok,
    FLOPs and collectives counted) and the ``gemma_deis`` hillclimb (every
    variant ran).
+17. The port's static analyzer (``python -m repro_torch.analysis``;
+   ``phase_analysis``) in a subprocess on this machine's Python, which has
+   no JAX: ``src/repro_torch`` with ``--json --bench`` exits 0 with no
+   active violation and ``static.files`` equal to the package's ``.py``
+   files; each bad fixture of ``tests/torch_analysis_fixtures`` fires its
+   rule alone, its exact count of times. Prints the files, the allowed
+   sites by rule and the seconds.
 
 The kernel JSON has one row per hand-written kernel: K1, and both kernels
 of K2 and of K3, each with its launches on its paths (K1 on the served
@@ -238,6 +245,12 @@ CARD_VS_CPU_TOL = 1e-3  # reduced float32 model: cuBLAS vs CPU summation order
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 FP32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
+# each bad fixture of the port's analyzer, its rule and exact count (the
+# CASES of tests/test_torch_analysis.py)
+ANALYSIS_FIXTURES = ROOT / "tests" / "torch_analysis_fixtures"
+ANALYSIS_CASES = {"rl001_bad.py": ("RL001", 11), "rl002_bad.py": ("RL002", 8),
+                  "rl003_bad.py": ("RL003", 4), "rl004_bad.py": ("RL004", 5),
+                  "kernels/rl005_bad.py": ("RL005", 4)}
 # the tensor-core kernel of each CUDA source (bf16 operands); float32 runs
 # the CUDA-core kernel of the same source
 MMA_KERNELS = {"flash_attention": "flash_fwd_mma_kernel", "ssd_scan": "ssd_scan_mma_kernel"}
@@ -2452,6 +2465,39 @@ def phase_dryrun(device, reduced, n=5):
     return secs
 
 
+def _analysis(*args):
+    """``python -m repro_torch.analysis ARGS --json``: (exit code, report)."""
+    proc = _popen([sys.executable, "-m", "repro_torch.analysis", *args, "--json"])
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode not in (0, 1):
+        raise AssertionError(f"the analyzer exited {proc.returncode}:\n{err[-3000:]}")
+    return proc.returncode, json.loads(out)
+
+
+def phase_analysis():
+    """The port's static analyzer, in subprocesses (see the module
+    docstring, phase 17)."""
+    t0 = time.perf_counter()
+    pkg = SRC / "repro_torch"
+    out = ROOT / "build" / "analysis"
+    out.mkdir(parents=True, exist_ok=True)
+    bench_path = out / "BENCH_static.json"
+    code, rep = _analysis(str(pkg), "--bench", str(bench_path))
+    files = len(list(pkg.rglob("*.py")))
+    active = {r: n for r, n in rep["counts"].items() if n}
+    rec = json.loads(bench_path.read_text())
+    assert code == 0 and not active, f"analysis of {pkg}: exit {code}, active {active}"
+    assert rep["files"] == rec["metrics"]["static.files"]["value"] == files, \
+        (rep["files"], rec["metrics"]["static.files"], files)
+    for name, (rule, n) in ANALYSIS_CASES.items():
+        code, bad = _analysis(str(ANALYSIS_FIXTURES / name))
+        fired = {r: k for r, k in bad["counts"].items() if k}
+        assert code == 1 and fired == {rule: n}, f"{name}: exit {code}, {fired}, want {rule} x {n}"
+    print(f"analysis: {files} files, 0 active, allowed by rule {rep['allowed_counts']}; "
+          f"{len(ANALYSIS_CASES)} bad fixtures fire their rules exactly "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+
 def _train_step_card_vs_cpu(device):
     """One train step of each arch type (dense gemma, ssm mamba2, moe
     mixtral, hybrid jamba, encdec whisper with frames, vlm paligemma with a
@@ -2909,6 +2955,8 @@ def main(argv=None) -> int:
     lap("paper")
     phase_dryrun(device, args.reduced)
     lap("dry run")
+    phase_analysis()
+    lap("analysis")
     # the CPU ranks start here, beside the card-vs-cpu phase: earlier they
     # would share the host with the timed serving phases
     cpu_ranks = start_cpu_ranks()

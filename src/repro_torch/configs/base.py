@@ -6,13 +6,15 @@ package). Only the fields and helpers the ported slices read are kept:
 (``is_attn_layer``/``is_moe_layer``), the MoE dispatch mode, the
 cross-entropy mode, the MoE batch pin ``act_shard_axes``,
 ``with_``/``reduced`` and ``get_config``, which loads
-``repro_torch.configs.<arch>``; and the dry runs' ``ShapeConfig`` and
-``INPUT_SHAPES``.
+``repro_torch.configs.<arch>``; the dry runs' ``ShapeConfig`` and
+``INPUT_SHAPES``; and the strict dict -> dataclass converter
+``config_from_dict``.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import typing
 from typing import Any, Optional
 
 
@@ -160,3 +162,43 @@ def get_config(arch: str, **overrides) -> ModelConfig:
     if overrides:
         cfg = cfg.with_(**overrides)
     return cfg
+
+
+def _strict_from_dict(cls, data: dict):
+    """Strict dict -> dataclass: unknown keys raise, nested dataclasses recurse,
+    lists destined for tuple fields are converted, obvious type mismatches raise."""
+    if not isinstance(data, dict):
+        raise TypeError(f"expected dict for {cls.__name__}, got {type(data).__name__}")
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(data) - set(fields)
+    if unknown:
+        raise ValueError(f"unknown keys {sorted(unknown)} for {cls.__name__}")
+    hints = typing.get_type_hints(cls)
+    kwargs: dict[str, Any] = {}
+    for name, val in data.items():
+        tp = hints[name]
+        if typing.get_origin(tp) is typing.Union:  # Optional[X]
+            non_none = [a for a in typing.get_args(tp) if a is not type(None)]
+            if val is None:
+                kwargs[name] = None
+                continue
+            tp = non_none[0]
+        if dataclasses.is_dataclass(tp):
+            kwargs[name] = _strict_from_dict(tp, val)
+        elif tp is tuple or typing.get_origin(tp) is tuple:
+            if not isinstance(val, (list, tuple)):
+                raise TypeError(f"{cls.__name__}.{name}: expected list/tuple, "
+                                f"got {type(val).__name__}")
+            kwargs[name] = tuple(val)
+        elif tp is float and isinstance(val, (int, float)) and not isinstance(val, bool):
+            kwargs[name] = float(val)
+        elif isinstance(tp, type) and not isinstance(val, tp):
+            raise TypeError(f"{cls.__name__}.{name}: expected {tp.__name__}, "
+                            f"got {type(val).__name__}")
+        else:
+            kwargs[name] = val
+    return cls(**kwargs)
+
+
+def config_from_dict(d: dict) -> ModelConfig:
+    return _strict_from_dict(ModelConfig, d)

@@ -298,7 +298,7 @@ class ServeDriver:
         stream = ServeStream(request.uid)
         with self._lock:
             if self._failed is not None:
-                stream._fail(self._closed_error())
+                stream._fail(self._closed_error(self._failed))
                 return stream
             if request.uid in self._streams:
                 raise ValueError(f"request uid {request.uid} is already "
@@ -425,10 +425,11 @@ class ServeDriver:
                 tokens=tok, row_steps=None, row_k=None, row_seq_lens=None,
                 row_err=err))
 
-    def _closed_error(self) -> RuntimeError:
+    @staticmethod
+    def _closed_error(failed: BaseException) -> RuntimeError:
         err = RuntimeError("the driver stopped: a tick failed on the mesh "
-                           f"({self._failed!r}) and its process groups are gone")
-        err.__cause__ = self._failed
+                           f"({failed!r}) and its process groups are gone")
+        err.__cause__ = failed
         return err
 
     def _crash(self, exc: BaseException) -> bool:

@@ -325,6 +325,7 @@ def _wait(x: torch.Tensor) -> None:
     """Block until the work queued on ``x``'s stream has finished (no-op
     on the CPU, which computes eagerly)."""
     if x.is_cuda:
+        # repro: allow[RL001] the tick's one wait per group step, after every group dispatched
         torch.cuda.current_stream(x.device).synchronize()
 
 

@@ -6,6 +6,10 @@ network) held field for field, then through their reduced float32 eps
 forward on both routes and their AR logits, with the reference's weights
 carried over (``params_from_numpy``).
 
+``config_from_dict`` is held against the reference's converter on the
+same dicts: equal field values on valid ones, the same exception type and
+message on invalid ones.
+
 Tolerance: eps and logits at float32 rtol = atol = 1e-5 (summation
 order)."""
 import dataclasses
@@ -17,9 +21,11 @@ import pytest
 import torch
 
 from repro.configs.base import ARCH_IDS as REF_ARCH_IDS
+from repro.configs.base import config_from_dict as ref_config_from_dict
 from repro.configs.base import get_config as ref_get_config
 from repro.models import transformer as RT
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import MoEConfig, SSMConfig, config_from_dict
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_numpy
 
@@ -45,6 +51,51 @@ def test_config_matches_reference(arch):
     for r, p in ((ref_get_config(arch), get_config(arch)),
                  (ref_get_config(arch).reduced(), get_config(arch).reduced())):
         assert dataclasses.asdict(p) == dataclasses.asdict(r)
+
+
+# the cases of the reference's own converter test, a nested ssm dict, a
+# tuple field given as a list, and an arch's whole published config
+VALID_DICTS = [
+    {"name": "m", "n_layers": 2, "d_model": 64,
+     "moe": {"num_experts": 4, "top_k": 1}, "rope_theta": 10000},
+    {"ssm": None},
+    {"arch_type": "ssm", "ssm": {"state_dim": 16, "head_dim": 16, "chunk_size": 32},
+     "norm_eps": 1, "act_shard_axes": ["data", "model"]},
+    {},
+    dataclasses.asdict(ref_get_config("jamba_1p5_large")),
+]
+INVALID_DICTS = [
+    ({"not_a_field": 1}, ValueError),
+    ({"moe": {"bogus": 1}}, ValueError),
+    ({"ssm": {"state_dim": 16, "bogus": 1}}, ValueError),
+    ({"n_layers": "four"}, TypeError),
+    ({"act_shard_axes": "data"}, TypeError),
+    ({"ssm": 3}, TypeError),
+    (["n_layers"], TypeError),
+]
+
+
+@pytest.mark.parametrize("d", VALID_DICTS, ids=range(len(VALID_DICTS)))
+def test_config_from_dict_matches_reference(d):
+    """The port's strict converter gives the reference's field values
+    (nested dataclasses, float promotion, list -> tuple)."""
+    got, want = config_from_dict(d), ref_config_from_dict(d)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for name in ("moe", "ssm"):
+        sub = getattr(got, name)
+        assert sub is None or isinstance(sub, {"moe": MoEConfig, "ssm": SSMConfig}[name])
+    assert isinstance(got.rope_theta, float) and isinstance(got.norm_eps, float)
+
+
+@pytest.mark.parametrize("d,exc", INVALID_DICTS, ids=range(len(INVALID_DICTS)))
+def test_config_from_dict_rejects_like_reference(d, exc):
+    with pytest.raises(exc) as ref_err:
+        ref_config_from_dict(d)
+    with pytest.raises(exc) as got_err:
+        config_from_dict(d)
+    assert str(got_err.value) == str(ref_err.value)
+    if exc is ValueError:
+        assert "unknown keys" in str(got_err.value)
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])

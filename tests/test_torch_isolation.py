@@ -4,6 +4,7 @@
 or function-local import is caught too. ``torch.testing._internal`` (the
 dry runs' fake process group) is torch's own."""
 import ast
+import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (the port's test files all import both frameworks)
@@ -52,7 +53,10 @@ def test_port_has_the_slice_modules():
                 "sharding/__init__.py", "sharding/rules.py",
                 "sharding/expert_parallel.py", "sharding/tensor_parallel.py",
                 "launch/dryrun.py", "launch/hillclimb.py", "core/solvers.py",
-                "obs/bench.py"):
+                "obs/bench.py", "analysis/__init__.py", "analysis/__main__.py",
+                "analysis/base.py", "analysis/config.py", "analysis/host_sync.py",
+                "analysis/recompile.py", "analysis/locks.py", "analysis/plan_leaves.py",
+                "analysis/kernel_routing.py", "analysis/cli.py"):
         assert (pkg / rel).is_file(), rel
 
 
@@ -61,3 +65,18 @@ def test_no_jax_or_reference_imports(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
     bad = sorted(r for r in roots if r in FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_analyzer_imports_only_the_standard_library():
+    """``repro_torch.analysis`` parses source and imports none of it: the
+    standard library, its own modules and ``repro_torch.obs.bench`` only
+    (no torch, numpy, JAX or reference module)."""
+    allowed = set(sys.stdlib_module_names) | {"repro_torch"}
+    for path in sorted((ROOT / "src" / "repro_torch" / "analysis").glob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        roots = set(_imported_roots(tree))
+        assert roots <= allowed, f"{path.name} imports {sorted(roots - allowed)}"
+        port = {(n.module, a.name) for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.level == 0
+                and (n.module or "").startswith("repro_torch") for a in n.names}
+        assert port <= {("repro_torch.obs", "bench")}, f"{path.name} imports {sorted(port)}"
