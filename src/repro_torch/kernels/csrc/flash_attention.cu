@@ -12,18 +12,53 @@
 //
 // What bounds it on the card: at the shapes the one-shot path gives it
 // (gemma-2b: B 4, S 256, H 8, KV 1, D 256, bf16) the function moves 9.4 MB
-// and does 2.1 GFLOP, so its least time is the bytes (2.8 us at 3.35 TB/s).
+// and does 2.1 GFLOP, so its least time is the bytes (2.8 us at 3.35 TB/s);
+// at paligemma's S 512 the operations (8.7 us at 989 TFLOP/s).
 //
-// Two kernels, chosen by the operands' dtype (the `dtype` argument of
-// flash_attention_fwd):
+// Three kernels, one per route (the `route` argument of flash_attention_fwd;
+// flash_attention.py's route() picks it from the operands):
 //
-// * bfloat16 -> flash_fwd_mma_kernel, on the tensor cores. One block of 4
-//   warps owns 64 query rows (16 a warp) of one (batch, head); at gemma's
-//   shape that is 128 blocks, one wave. Q, K and V stay bf16 in shared
-//   memory, rows padded by 16 bytes so that ldmatrix's 8 row addresses fall
-//   in distinct banks. K and V tiles of BK rows (64, or 32 at D 256 where
-//   the output accumulator takes 128 registers a thread) are filled by
-//   16-byte cp.async copies, double-buffered: tile j + 1 loads while tile j
+// * wgmma (bfloat16 that TMA can describe: base pointers 16-byte aligned, D
+//   64, 128 or 256) -> flash_fwd_wgmma_kernel<D, KSPLIT>, on Hopper's
+//   warpgroup tensor-core path. A block is three warpgroups: a producer and
+//   two consumers. The producer gives back all but 40 of its registers
+//   (setmaxnreg) so each consumer can hold 232 (O is 64 x D float32 across
+//   a warpgroup: 128 registers a thread at D 256); ptxas alone would allot
+//   168 to each of the three. One producer thread keeps TMA copies in
+//   flight: Q once, then K and V tiles of 64 keys into a ring of 2-4
+//   shared-memory stages (128-byte swizzle, each 64-column box at a 1024-byte
+//   boundary), with completion on "full" mbarriers and reuse gated by
+//   "empty" mbarriers (phase parity of use k is k & 1). A consumer
+//   warpgroup owns 64 query rows. The heads that share a KV head are packed
+//   into those rows (G = the largest power of two dividing H / KV, at most
+//   64: row r is position p0 + r / G of head h0 + r % G, one 4-d TMA box), so
+//   at MQA 8/1 one K/V tile serves 8 positions x 8 heads. Per tile:
+//     S = Q K^T   wgmma m64n64k16 over D, Q and K K-major from shared memory
+//     masks (skipped when the whole tile is visible to every row), scale,
+//     online softmax in base 2 (the scale folds in log2 e; running max and
+//     sum in float32, -1e30 masks, as before), quad shuffles
+//     O += P V    wgmma with P as the register A operand (the m64nNk16
+//                 accumulator of two n8 tiles is the A fragment of 16 keys,
+//                 P rounded to bf16 once) and V MN-major (transpose bit)
+//   Two block shapes (launch_wgmma_dim): where blocks of 128 rows fill at
+//   least 3/4 of a wave of the 132 SMs (mixtral, glm4, paligemma), the two
+//   consumers each own a Q tile and read every K/V stage (one load for 128
+//   rows, no merge); where they would not (gemma's 64 blocks, whisper's 48),
+//   both share one Q tile and split its key tiles, and merge their partial
+//   softmax states at the end, each merging half of the columns, so the
+//   grid keeps 128 and 96 blocks. The epilogue writes O / max(l, 1e-30) in
+//   bf16 into the Q tile's place and out by a TMA store, which drops the
+//   rows past Sq. What holds it at 1.3-2.8x SDPA (PERF.md, tools/
+//   kernel_stages.py): each warpgroup's tile is a serial chain S -> softmax
+//   -> P V with one block an SM, and the epilogue; not the loads.
+// * mma_sync (any other bf16: unaligned views, D 32) ->
+//   flash_fwd_mma_kernel, the Ampere-style tensor-core kernel. One block of
+//   4 warps owns 64 query rows (16 a warp) of one (batch, head). Q, K and V
+//   stay bf16 in shared memory, rows padded by 16 bytes so that ldmatrix's 8
+//   row addresses fall in distinct banks. K and V tiles of BK rows (64, or 32
+//   at D 256 where the output accumulator takes 128 registers a thread) are
+//   filled by 16-byte cp.async copies (element loads where a row start is
+//   not 16-byte aligned), double-buffered: tile j + 1 loads while tile j
 //   multiplies. Per tile and warp:
 //     S = Q K^T   mma.sync m16n8k16 over D, Q by ldmatrix, K by ldmatrix
 //                 (its rows are the product's columns), float32 accumulator
@@ -38,9 +73,9 @@
 //   FlashAttention-2 does (about 1e-4 on outputs of about 0.1 at N(0, 1)
 //   inputs, against the bf16 check's 2e-2).
 //
-// * float32 -> flash_fwd_kernel, on the CUDA cores. Tensor cores in bf16 or
-//   TF32 cannot meet the float32 check (2e-5), so float32 operands keep
-//   this kernel: one block of 256 threads (a 16 x 16 grid) owns BQ = 32
+// * cuda_cores (float32) -> flash_fwd_kernel, on the CUDA cores. Tensor
+//   cores in bf16 or TF32 cannot meet the float32 check (2e-5), so float32
+//   operands keep this kernel: one block of 256 threads (a 16 x 16 grid) owns BQ = 32
 //   query rows and walks key tiles of BK = 32 rows. Per tile:
 //     S = Q K^T * scale      each thread 2 x 2 of the 32 x 32 tile, over D
 //     mask, row max and row sum by half-warp shuffles (a row's 16 threads
@@ -387,6 +422,300 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16 on Hopper: the wgmma kernel
+
+// KSPLIT: the two consumer warpgroups share one 64-row Q tile and split its
+// key tiles (partial softmax states merged at the end); else each has a Q
+// tile of its own (128 rows a block) and both read every K/V stage
+template <int D, bool KSPLIT>
+struct WgTile {
+    static constexpr int NC = 2;                           // consumer warpgroups
+    static constexpr int QT = KSPLIT ? 1 : 2;              // 64-row Q tiles a block
+    static constexpr int STAGES = D == 64 ? 4 : (D == 128 || KSPLIT ? 3 : 2);
+    static constexpr int CH = D / 64;                      // 64-column boxes a row
+    static constexpr int BOX = 64 * 128;                   // bytes of a box of 64 rows
+    static constexpr int Q_BYTES = CH * BOX;               // a Q tile
+    static constexpr int STAGE_BYTES = 2 * CH * BOX;       // K, then V, of 64 keys
+    static constexpr int THREADS = 128 * (NC + 1);         // and the producer warpgroup
+    // registers a thread: ptxas sizes every warpgroup alike (65536 / 384 =
+    // 168); the producer gives back all but 40, the consumers take 232
+    static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+    static constexpr size_t SMEM = 1024 + QT * Q_BYTES + STAGES * STAGE_BYTES;
+};
+
+template <int D, bool KSPLIT>
+__global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma_kernel(
+        const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+        const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+        int H, int KV, int sq, int sk, int causal, int window, float scale, int G) {
+    using T = WgTile<D, KSPLIT>;
+    constexpr int NC = T::NC, QT = T::QT, STAGES = T::STAGES, CH = T::CH, BOX = T::BOX;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
+    unsigned char* qs = align_1024(smem_raw);      // QT tiles of CH boxes: 64 rows of Q each
+    unsigned char* ring = qs + QT * T::Q_BYTES;    // STAGES x (CH boxes of K, CH of V)
+    uint64_t* full = bars;                         // a stage's K and V have landed
+    uint64_t* empty = bars + STAGES;               // its consumers are done with it
+    uint64_t* qbar = bars + 2 * STAGES;
+
+    // a Q tile's 64 rows: G heads (sharing one KV head) at each of 64 / G
+    // positions, row r = position p0 + r / G, head h0 + r % G; the block's QT
+    // tiles follow one another
+    const int npos = 64 / G;
+    const int p0 = blockIdx.x * QT * npos;
+    const int groups = H / G;
+    const int b = blockIdx.y / groups, h0 = (blockIdx.y % groups) * G;
+    const int kvh = h0 / (H / KV);
+    const int q_off = sk - sq;
+    int k_lo = 0, k_hi = sk;
+    if (causal) k_hi = min(sk, q_off + min(p0 + QT * npos, sq));
+    if (window) k_lo = max(0, q_off + p0 - window + 1);
+    const int t_begin = k_lo / 64;
+    const int n_tiles = k_hi > k_lo ? (k_hi + 63) / 64 - t_begin : 0;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 128 * QT);
+        }
+        mbar_init(qbar, 1);
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 128 * NC) {   // the producer warpgroup: one thread issues every copy
+        reg_dealloc<T::PRODUCER_REGS>();
+        if (threadIdx.x == 128 * NC && n_tiles > 0) {
+            mbar_expect_tx(qbar, QT * T::Q_BYTES);
+            for (int qt = 0; qt < QT; ++qt)
+                for (int c = 0; c < CH; ++c)
+                    tma_load_4d(qs + qt * T::Q_BYTES + c * BOX, &qmap, qbar, 64 * c, h0,
+                                p0 + qt * npos, b);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % STAGES;
+                if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+                mbar_expect_tx(&full[s], T::STAGE_BYTES);
+                unsigned char* st = ring + s * T::STAGE_BYTES;
+                const int k0 = (t_begin + i) * 64;
+                for (int c = 0; c < CH; ++c) {
+                    tma_load_4d(st + c * BOX, &kmap, &full[s], 64 * c, kvh, k0, b);
+                    tma_load_4d(st + (CH + c) * BOX, &vmap, &full[s], 64 * c, kvh, k0, b);
+                }
+            }
+        }
+        return;
+    }
+
+    // consumer warpgroup wg: KSPLIT, the block's key tiles wg, wg + NC, ..
+    // of the one Q tile; else every key tile of Q tile wg
+    reg_alloc<T::CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128, ctid = threadIdx.x % 128;
+    const int warp = ctid / 32, lane = ctid % 32, g = lane / 4, t4 = lane % 4;
+    const int r0 = 16 * warp + g;                  // this thread's rows: r0 and r0 + 8
+    unsigned char* qw = qs + (KSPLIT ? 0 : wg * T::Q_BYTES);   // this warpgroup's Q tile
+    const int pw = KSPLIT ? p0 : p0 + wg * npos;               // and its first position
+    int qpos[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qpos[i] = q_off + pw + (r0 + 8 * i) / G;
+    // keys this warpgroup's rows can see (only KSPLIT's blocks share them)
+    const int w_hi = causal ? q_off + min(pw + npos, sq) : sk;
+    const int w_lo = window ? q_off + pw - window + 1 : 0;
+    auto visible = [&](int kpos, int qp) {
+        return kpos < sk && (!causal || kpos <= qp) && (!window || kpos > qp - window);
+    };
+    float o[CH][32];
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // running max (base 2), denominator
+    const float scale2 = scale * 1.4426950408889634f;      // log2 e
+
+    if (n_tiles > 0) mbar_wait(qbar, 0);
+    for (int i = KSPLIT ? wg : 0; i < n_tiles; i += KSPLIT ? NC : 1) {
+        const int s = i % STAGES;
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        const unsigned char* ks = ring + s * T::STAGE_BYTES;
+        const unsigned char* vs = ks + CH * BOX;
+        const int k0 = (t_begin + i) * 64, key0 = k0 + 2 * t4;
+        if (k0 >= w_hi || k0 + 64 <= w_lo) {   // no key of the tile for these rows
+            mbar_arrive(&empty[s]);
+            continue;
+        }
+
+        // S = Q K^T: 64 rows x 64 keys, k-slices of 16 along D
+        float sc[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss(sc, wgmma_desc(qw + (kk / 4) * BOX + (kk % 4) * 32),
+                     wgmma_desc(ks + (kk / 4) * BOX + (kk % 4) * 32), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+
+        // masks, scale, online softmax in base 2 (scores, maxima and exponents
+        // times log2 e, so each exponential is one exp2f: the same function,
+        // rounded within a few ulp): sc[4 j + e] is row r0 + 8 (e / 2),
+        // key k0 + 8 j + 2 t4 + e % 2; a row's 4 threads are a quad
+        // every key of the tile visible to every row of the Q tile: no mask
+        const bool whole = k0 + 64 <= sk && (!causal || k0 + 63 <= q_off + pw)
+                           && (!window || k0 > q_off + pw + npos - 1 - window);
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                float& v = sc[4 * j + e];
+                v = whole || visible(key0 + 8 * j + (e & 1), qpos[r]) ? v * scale2 : NEG_INF;
+                mx[r] = fmaxf(mx[r], v);
+            }
+        float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            mx[r] = fmaxf(m[r], mx[r]);                 // the new running max
+            alpha[r] = exp2f(m[r] - mx[r]);
+            m[r] = mx[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                float& v = sc[4 * j + e];
+                v = whole || visible(key0 + 8 * j + (e & 1), qpos[r]) ? exp2f(v - m[r]) : 0.f;
+                psum[r] += v;
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+            l[r] = alpha[r] * l[r] + psum[r];
+        }
+        if (alpha[0] != 1.f || alpha[1] != 1.f)   // a row maximum moved
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+#pragma unroll
+                for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+
+        // O += P V: P, rounded to bf16 once, is the register A operand (the
+        // accumulators of n8 tiles 2 kk and 2 kk + 1 are the A fragment of
+        // keys 16 kk .. 16 kk + 15); V is MN-major, rows of keys
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            pa[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
+            pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+            pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+            pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int c = 0; c < CH; ++c) reg_fence(o[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+                wgmma_rs<1>(o[c], pa[kk], wgmma_desc(vs + c * BOX + kk * 16 * 128), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < CH; ++c) reg_fence(o[c]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
+        mbar_arrive(&empty[s]);
+    }
+
+    if constexpr (!KSPLIT) {
+        // epilogue: O / max(l, 1e-30) in bf16 into this warpgroup's Q tile,
+        // in Q's layout, and out by TMA (rows past Sq are not written)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    *reinterpret_cast<uint32_t*>(qw + c * BOX + sw128(r0 + 8 * r, 8 * j + 2 * t4)) =
+                        pack_bf16x2(o[c][4 * j + 2 * r] / den, o[c][4 * j + 2 * r + 1] / den);
+        }
+        fence_proxy_async();
+        bar_sync(2 + wg, 128);
+        if (ctid == 0) {
+            for (int c = 0; c < CH; ++c) tma_store_4d(&omap, qw + c * BOX, 64 * c, h0, pw, b);
+            bulk_commit();
+            bulk_wait_read();
+        }
+        return;
+    } else {
+        // epilogue: the two warpgroups' partial softmax states, merged as the
+        // online softmax merges two tiles, each warpgroup merging half of the
+        // n8 column tiles (t < 4 CH: warpgroup 0) after swapping the other
+        // half through the ring (every copy has landed and been consumed);
+        // then O / max(l, 1e-30) in bf16 into the Q tile's place, in Q's
+        // layout, and out by TMA (rows past Sq are not written)
+        constexpr int HALF = 4 * CH;                   // n8 column tiles a warpgroup merges
+        bar_sync(1, 256);
+        float* xo = reinterpret_cast<float*>(ring);    // [warpgroup][4 HALF values][128 threads]
+        float* xm = xo + 2 * 4 * HALF * 128;           // [warpgroup][64 rows] running maxima
+        float* xl = xm + 2 * 64;                       // [warpgroup][64 rows] denominators
+        const int give = 1 - wg;                       // the half this warpgroup hands over
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int t = 8 * c + j;
+                if ((t >= HALF) != give) continue;
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    xo[(wg * 4 * HALF + 4 * (t % HALF) + e) * 128 + ctid] = o[c][4 * j + e];
+            }
+        if (t4 == 0) {
+            xm[wg * 64 + r0] = m[0];
+            xm[wg * 64 + r0 + 8] = m[1];
+            xl[wg * 64 + r0] = l[0];
+            xl[wg * 64 + r0 + 8] = l[1];
+        }
+        bar_sync(1, 256);
+        float a0[2], a1[2], den[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float m1 = xm[give * 64 + r0 + 8 * r], mn = fmaxf(m[r], m1);
+            a0[r] = exp2f(m[r] - mn);
+            a1[r] = exp2f(m1 - mn);
+            den[r] = fmaxf(a0[r] * l[r] + a1[r] * xl[give * 64 + r0 + 8 * r], 1e-30f);
+        }
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int t = 8 * c + j;
+                if ((t >= HALF) != wg) continue;
+                const float* other = xo + (give * 4 * HALF + 4 * (t % HALF)) * 128 + ctid;
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const float v0 = a0[r] * o[c][4 * j + 2 * r] + a1[r] * other[2 * r * 128];
+                    const float v1 =
+                        a0[r] * o[c][4 * j + 2 * r + 1] + a1[r] * other[(2 * r + 1) * 128];
+                    *reinterpret_cast<uint32_t*>(qs + c * BOX + sw128(r0 + 8 * r, 8 * j + 2 * t4)) =
+                        pack_bf16x2(v0 / den[r], v1 / den[r]);
+                }
+            }
+        fence_proxy_async();
+        bar_sync(1, 256);
+        if (threadIdx.x == 0) {
+            for (int c = 0; c < CH; ++c) tma_store_4d(&omap, qs + c * BOX, 64 * c, h0, p0, b);
+            bulk_commit();
+            bulk_wait_read();
+        }
+    }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 
@@ -441,18 +770,73 @@ cudaError_t launch_dim(int D, const void* q, const void* k, const void* v, void*
 #undef FA_LAUNCH
 }
 
+
+template <int D, bool KSPLIT>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int sq,
+                         int sk, int H, int KV, int causal, int window, float scale,
+                         cudaStream_t stream) {
+    using T = WgTile<D, KSPLIT>;
+    // G heads sharing a KV head fill a block's 64 rows together: the
+    // largest power of two dividing H / KV, at most 64
+    const int n_rep = H / KV;
+    const int G = min(n_rep & -n_rep, 64);
+    const cuuint64_t es = sizeof(__nv_bfloat16);
+    const cuuint64_t qdims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)sq, (cuuint64_t)B};
+    const cuuint64_t qstr[3] = {D * es, (cuuint64_t)H * D * es, (cuuint64_t)sq * H * D * es};
+    const cuuint32_t qbox[4] = {64, (cuuint32_t)G, (cuuint32_t)(64 / G), 1};
+    const cuuint64_t kdims[4] = {(cuuint64_t)D, (cuuint64_t)KV, (cuuint64_t)sk, (cuuint64_t)B};
+    const cuuint64_t kstr[3] = {D * es, (cuuint64_t)KV * D * es, (cuuint64_t)sk * KV * D * es};
+    const cuuint32_t kbox[4] = {64, 1, 64, 1};
+    CUtensorMap qm, km, vm, om;
+    if (!bf16_map(&qm, q, 4, qdims, qstr, qbox) || !bf16_map(&km, k, 4, kdims, kstr, kbox)
+        || !bf16_map(&vm, v, 4, kdims, kstr, kbox) || !bf16_map(&om, out, 4, qdims, qstr, qbox))
+        return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D, KSPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)T::SMEM);
+    if (err != cudaSuccess) return err;
+    const int rows = T::QT * (64 / G);   // query positions a block
+    const dim3 grid((sq + rows - 1) / rows, B * (H / G));
+    flash_fwd_wgmma_kernel<D, KSPLIT><<<grid, T::THREADS, T::SMEM, stream>>>(
+        qm, km, vm, om, H, KV, sq, sk, causal, window, scale, G);
+    return cudaGetLastError();
+}
+
+// blocks of 128 rows (each K/V tile read once for both warpgroups) where
+// they fill at least 3/4 of a wave of the card's 132 SMs; else blocks of 64
+// rows with the key tiles split between the warpgroups (twice the blocks)
+cudaError_t launch_wgmma_dim(int D, const void* q, const void* k, const void* v, void* out,
+                             int B, int sq, int sk, int H, int KV, int causal, int window,
+                             float scale, cudaStream_t st) {
+    const int n_rep = H / KV, G = min(n_rep & -n_rep, 64);
+    const bool ksplit = 4LL * ((sq + 128 / G - 1) / (128 / G)) * B * (H / G) < 3 * 132;
+#define FA_WG(DIM)                                                                            \
+    return ksplit ? launch_wgmma<DIM, true>(q, k, v, out, B, sq, sk, H, KV, causal, window,   \
+                                            scale, st)                                       \
+                  : launch_wgmma<DIM, false>(q, k, v, out, B, sq, sk, H, KV, causal, window,  \
+                                             scale, st)
+    switch (D) {
+        case 64: FA_WG(64);
+        case 128: FA_WG(128);
+        case 256: FA_WG(256);
+        default: return cudaErrorInvalidValue;
+    }
+#undef FA_WG
+}
+
 }  // namespace
 
-// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
-// kernel). Returns cudaGetLastError() after the launch (0 on success); the
-// caller raises on anything else.
+// route: 0 float32 (the CUDA-core kernel), 1 bfloat16 on mma.sync, 2
+// bfloat16 on wgmma. Returns cudaGetLastError() after the launch (0 on
+// success); the caller raises on anything else.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int dtype, int B, int sq, int sk, int H, int KV, int D,
+                                   int route, int B, int sq, int sk, int H, int KV, int D,
                                    int causal, int window, float scale, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
+    switch (route) {
         case 0: return launch_dim<false>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         case 1: return launch_dim<true>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
+        case 2: return launch_wgmma_dim(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         default: return cudaErrorInvalidValue;
     }
 }

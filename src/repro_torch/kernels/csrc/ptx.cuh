@@ -1,7 +1,10 @@
 // The tensor-core kernels' inline PTX, one instruction per function, for
 // sm_90a: bf16 m16n8k16 products with float32 accumulation (mma.sync),
 // 8 x 8 b16 matrix loads from shared memory (ldmatrix), and 16-byte
-// asynchronous copies from device to shared memory (cp.async).
+// asynchronous copies from device to shared memory (cp.async); then
+// Hopper's own (second part below): warpgroup products (wgmma), tensor
+// copies by the tensor memory accelerator (TMA) and shared-memory barriers
+// (mbarrier).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane = 4 g + t of a warp:
@@ -17,6 +20,8 @@
 // 4g + t holds row g, columns 2t and 2t+1; with .trans, rows 2t and 2t+1 of
 // column g.
 #pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <cstdint>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -81,4 +86,254 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 __device__ __forceinline__ void split_bf16x2(float lo, float hi, uint32_t& big, uint32_t& small) {
     big = pack_bf16x2(lo, hi);
     small = pack_bf16x2(lo - bf16_lo(big), hi - bf16_hi(big));
+}
+
+// ---------------------------------------------------------------------------
+// Hopper: wgmma, TMA, mbarrier, setmaxnreg
+//
+// wgmma.mma_async m64n64k16 (PTX ISA, "Asynchronous Warpgroup Level Matrix
+// Multiply-Accumulate"): the 4 warps of a warpgroup (128 threads; warp w of
+// the group owns rows 16 w .. 16 w + 15) compute D (64 x 64, float32)
+// (+)= A (64 x 16) B (16 x 64) in bf16. Within a warp the register layouts
+// are mma.m16n8k16's above: A from registers is its A fragment (4 x 32
+// bits), and D holds the C fragments of the 8 n8 tiles in order,
+// d[4 j + e] = tile j's c_e. B, and A from shared memory, are read through a
+// 64-bit matrix descriptor: start address >> 4 (bits 0-13), leading and
+// stride byte offsets >> 4 (16-29, 32-45), swizzle mode (62-63; 1 = 128
+// bytes). Every tile here is a TMA box of 64 rows of 128 bytes (64 bf16)
+// written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r lies at
+// r * 128 + ((c ^ (r % 8)) * 16), 8 rows (1024 bytes) to a swizzle atom, each
+// box at a 1024-byte boundary. So:
+//   K-major operand (a row holds the k values: Q, K, C, B of C B^T, h):
+//     start = box of k / 64 + (k % 64) * 2 bytes, for the k-slice at k;
+//   MN-major operand (a row is one k: V, x, B of the state), transpose bit
+//     set: start = box + k * 128 bytes.
+// One product of N = 64 stays within one box, so its only stride is the one
+// between 8-row groups (1024 bytes): both byte offsets are set to it,
+// whichever of the two the mode reads.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
+    return ((uint64_t)(smem_addr(tile) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16)
+           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// order this thread's register and shared-memory accesses before the
+// warpgroup's next wgmma (needed before the first one and whenever its
+// accumulators or A registers were written by other instructions)
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of wgmma are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of these registers across the
+// asynchronous wgmma that reads or writes them
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+#define WGMMA_D32                                                                      \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+    "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_D32_OUT(d)                                                                  \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+    "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+    "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+    "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+    "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d = A B (accumulate 0) or d += A B (1): m64n64k16, bf16, A and B in shared
+// memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WGMMA_D32_OUT(d)
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same with A from registers (this warp's 16 rows as an m16n8k16 A
+// fragment); TRANS_B: B is MN-major
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : WGMMA_D32_OUT(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+#undef WGMMA_D32
+#undef WGMMA_D32_OUT
+
+// the byte offset of bf16 element (r, c) in a box of rows of 128 bytes
+// written with the 128-byte swizzle
+__device__ __forceinline__ int sw128(int r, int c) {
+    return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// p advanced to the next 1024-byte boundary of shared memory (the 128-byte
+// swizzle's atom)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+    return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+// an mbarrier expecting `count` arrivals a phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+                 : "memory");
+}
+
+// make initialised mbarriers visible to the other threads and to TMA
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// arrive, and expect `bytes` more of TMA copies before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the phase of this parity has completed (phases count from 0;
+// use k completes the phase of parity k & 1). A wait of more than about 2^33
+// cycles (seconds) traps, so a lost arrival fails the launch rather than
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_addr(bar);
+    long long t0 = 0;
+    for (int spin = 0;; ++spin) {
+        uint32_t done;
+        asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (done) return;
+        if (spin == 0) t0 = clock64();
+        else if (clock64() - t0 > (1LL << 33)) __trap();
+    }
+}
+
+// a 3-d / 4-d TMA box at coordinates (c0 innermost, ...) into dst, its bytes
+// reported to bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+           "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// a 4-d TMA box from src (in the same layout a load would give) to
+// coordinates (c0 innermost, ...) of the map's tensor; elements outside it
+// are not written. Completes in a bulk group of this thread.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2),
+           "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// order this thread's generic shared-memory writes before later accesses of
+// the async proxy (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// warp specialisation: the producer warpgroup gives registers back to the
+// CTA's pool (setmaxnreg.dec) and each consumer warpgroup takes more
+// (setmaxnreg.inc, waiting until the pool has them). Every thread of the
+// warpgroup executes it; the roles' paths never rejoin.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// named barrier `id` over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// host side: TMA tensor maps, encoded per launch
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                        cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+        fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// a bf16 tensor map of `rank` dims (innermost first; strides in bytes of
+// dims 1..) read in boxes of `box`, rows of 128 bytes with the 128-byte
+// swizzle; out-of-range elements read as zeros
+inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+    const EncodeTiled fn = encode_tiled();
+    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+    return fn != nullptr
+           && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                 strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+                  == CUDA_SUCCESS;
 }

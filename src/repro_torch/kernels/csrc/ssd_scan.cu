@@ -20,12 +20,47 @@
 // two L x P x N products), so its least time is the bytes (9.6 us at
 // 3.35 TB/s).
 //
-// Two kernels, chosen by the dtype of x, B and C (the `dtype` argument of
-// ssd_scan_fwd):
+// Three kernels, one per route (the `route` argument of ssd_scan_fwd;
+// ssd_scan.py's route() picks it from the operands):
 //
-// * bfloat16 -> ssd_scan_mma_kernel, on the tensor cores (mma.sync
-//   m16n8k16, bf16 in, float32 accumulate). One block of 4 warps per
-//   (batch, head). Per chunk: the block scan of log a into cum, then exp(cum)
+// * wgmma (bfloat16 that TMA can describe: base pointers 16-byte aligned, P
+//   and N multiples of 8) -> ssd_scan_wgmma_kernel<HG>. Its numerics are the
+//   mma_sync kernel's below (the hi/lo splits against exact bf16 operands,
+//   exp(cum_t - cum_u) never factored, the 1e-37 clamp, padding with a = 1,
+//   the float32 state carried from chunk to chunk, no inter-chunk term on
+//   the first chunk), with the prefix of log a and every exponential in
+//   base 2 (log2f, exp2f: the same functions, rounded within a few ulp). B
+//   and C carry no head axis, so a block owns HG = 2 heads (1 where H is
+//   odd) and computes each C_t B_u^T once for both. The work of a (batch,
+//   head pair) is cut into items: y of each 64-row query tile (for every
+//   chunk), and the state's columns of each 64-column box of B, so mamba2's
+//   shape has 4 x 40 x (4 + 2) = 960 items. A block (three warpgroups, as
+//   in K2: a producer that keeps 40 registers, two consumers that take 232)
+//   is persistent, one an SM, walking items w, w + gridDim.x, ..; its
+//   producer thread runs ahead across items, filling a ring of three stages
+//   (B of a key tile and x of the heads, by TMA: x through a 4-d map over
+//   (P, H, S, Bb), boxes of 64 steps x 64 columns, out-of-range columns
+//   read as zeros) and the C tile of each query tile (its own full / empty
+//   mbarriers). In a y item the two consumers split the key tiles u <= t:
+//     1. scores C_t B_u^T: wgmma m64n64k16 over N, C and B K-major;
+//     2. per head, W = scores o exp(cum_t - cum_u) on u <= t, split into
+//        bf16 high and low parts in registers, each 16-key group's W
+//        computed while the previous group's products run;
+//     3. y += W_hi x_u + W_lo x_u: wgmma with W as the register A operand
+//        and x MN-major;
+//   then warpgroup 1's partial y is added to warpgroup 0's through shared
+//   memory and stored. In a state item each consumer takes one head: h +=
+//   (x o exp(cum_L - cum))^T B over the chunk's key tiles, the decayed x
+//   (from ldmatrix.trans of the swizzled tile) split into high and low
+//   parts as the register A operand, B MN-major. Across chunks, each
+//   query-tile item keeps its own float32 copy of the state (scratch) for
+//   the inter-chunk term C_t (h_hi + h_lo)^T (h split into a swizzled bf16
+//   tile, wgmma with C), and the state items write the final state. What
+//   holds it at 0.15 of its bound (PERF.md, tools/kernel_stages.py): the W x
+//   stage and the merge and store of y.
+// * mma_sync (any other bf16) -> ssd_scan_mma_kernel, on the tensor cores
+//   (mma.sync m16n8k16, bf16 in, float32 accumulate). One block of 4 warps
+//   per (batch, head). Per chunk: the block scan of log a into cum, then exp(cum)
 //   and exp(cum_L - cum) per step (float32 in shared memory); then, per
 //   query tile of 64 steps (16 rows a warp), for each key tile u <= t:
 //     1. scores C_t B_u^T over N, in k-steps of 16 (N below a multiple of
@@ -48,9 +83,9 @@
 //   shape run in one wave; a sequence of more than one chunk adds the
 //   float32 state (33 KB) in shared memory, two blocks an SM.
 //
-// * float32 -> ssd_scan_kernel, on the CUDA cores. Tensor cores in bf16 or
-//   TF32 cannot meet the float32 check (2e-4), so float32 operands keep this
-//   kernel: one block of 256 threads (16 x 16) per (batch, head); the state
+// * cuda_cores (float32) -> ssd_scan_kernel, on the CUDA cores. Tensor
+//   cores in bf16 or TF32 cannot meet the float32 check (2e-4), so float32
+//   operands keep this kernel: one block of 256 threads (16 x 16) per (batch, head); the state
 //   stays in shared memory. A chunk of 256 steps would need a 256 x 256
 //   float32 score matrix (256 KB, more than a block's 227 KB), so each chunk
 //   is cut into tiles of 64 steps:
@@ -599,6 +634,400 @@ __global__ void __launch_bounds__(MMA_THREADS, 3) ssd_scan_mma_kernel(
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16 on Hopper: the wgmma kernel
+
+constexpr int WG_BOX = 64 * 128;       // bytes of a TMA box: 64 steps x 64 bf16 columns
+constexpr int WG_STAGES = 3;
+
+template <int HG>
+struct ScanWg {
+    static constexpr int STAGE_BYTES = (2 + HG) * WG_BOX;   // B of a key tile (2 boxes), x of each head
+    static constexpr int XACC_BYTES = HG * 64 * 64 * 4;     // warpgroup 1's partial y
+    static constexpr int THREADS = 3 * 128;                 // two consumer warpgroups, the producer's
+    // registers a thread: ptxas sizes every warpgroup alike (65536 / 384 =
+    // 168); the producer gives back all but 40, the consumers take 232
+    static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+    // C of the query tile (2 boxes), the ring, the partial y, [h split into
+    // high and low parts, 2 boxes each, when S > L], cum / exp(cum) /
+    // exp(cum_L - cum)
+    static size_t smem(bool chunks) {
+        return 1024 + 2 * WG_BOX + WG_STAGES * STAGE_BYTES + XACC_BYTES
+               + (chunks ? 4 * WG_BOX : 0) + 3 * HG * MAXL * sizeof(float);
+    }
+};
+
+// y += (W_hi + W_lo) x over one key tile (64 steps) of one head, W = the
+// scores o exp(cum_t - cum_u) on u <= t: each k-group's W (keys 16 kg ..) is
+// computed while the previous one's products run (A registers double-
+// buffered). cj: the head's cum; tr: the thread's two rows in the chunk;
+// u0: the tile's first step in the chunk; xs: the head's x box
+__device__ __forceinline__ void decayed_scores_times_x(float (&acc)[32], const float (&sc)[32],
+                                                       const float* cj, const int (&tr)[2], int u0,
+                                                       const unsigned char* xs, int t4) {
+    const float ct[2] = {cj[tr[0]], cj[tr[1]]};
+    uint32_t wh[2][4], wl[2][4];
+    reg_fence(acc);
+#pragma unroll
+    for (int kg = 0; kg < 4; ++kg) {
+        const int bf = kg & 1;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int jn = 2 * kg + half;
+            const int uu = u0 + 8 * jn + 2 * t4;
+            const float cu0 = cj[uu], cu1 = cj[uu + 1];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float w0 = uu <= tr[r] ? sc[4 * jn + 2 * r] * exp2f(ct[r] - cu0) : 0.f;
+                const float w1 = uu + 1 <= tr[r] ? sc[4 * jn + 2 * r + 1] * exp2f(ct[r] - cu1) : 0.f;
+                split_bf16x2(w0, w1, wh[bf][2 * half + r], wl[bf][2 * half + r]);
+            }
+        }
+        wgmma_fence();
+        const uint64_t dx = wgmma_desc(xs + kg * 16 * 128);
+        wgmma_rs<1>(acc, wh[bf], dx, 1);
+        wgmma_rs<1>(acc, wl[bf], dx, 1);
+        wgmma_commit();
+        wgmma_wait<1>();      // the previous k-group is done: its registers are free
+        reg_fence(wh[bf ^ 1]);
+        reg_fence(wl[bf ^ 1]);
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(wh[1]);
+    reg_fence(wl[1]);
+}
+
+template <int HG>
+__global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
+        const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap bmap,
+        const __grid_constant__ CUtensorMap cmap, const float* __restrict__ a,
+        __nv_bfloat16* __restrict__ y, float* __restrict__ state, float* __restrict__ scratch,
+        int Bb, int S, int H, int P, int N, int L) {
+    constexpr int BOX = WG_BOX, STAGES = WG_STAGES, STAGE_BYTES = ScanWg<HG>::STAGE_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    __shared__ __align__(8) uint64_t bars[2 * STAGES + 2];
+    __shared__ float warp_sum[2][4];
+    const int n_chunks = (S + L - 1) / L;
+    unsigned char* cq = align_1024(smem_raw);               // C rows of the query tile
+    unsigned char* ring = cq + 2 * BOX;                      // STAGES x (B: 2 boxes, x: HG)
+    float* xacc = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);   // HG x 32 x 128
+    unsigned char* hsplit = reinterpret_cast<unsigned char*>(xacc) + ScanWg<HG>::XACC_BYTES;
+    float* cum = reinterpret_cast<float*>(hsplit + (n_chunks > 1 ? 4 * BOX : 0));  // HG x MAXL
+    float* ein = cum + HG * MAXL;                            // exp(cum_t)
+    float* eout = ein + HG * MAXL;                           // exp(cum_L - cum_u), 0 past L
+    uint64_t* full = bars;
+    uint64_t* empty = bars + STAGES;
+    uint64_t* cfull = bars + 2 * STAGES;
+    uint64_t* cempty = cfull + 1;
+
+    // work items, walked by the persistent blocks (w = blockIdx.x, + gridDim.x,
+    // ..): per (batch, head group), the state's columns of each box of B
+    // (job nq + box) and y of each query tile of every chunk (job < nq), the
+    // larger first: the state's boxes, then query tiles nq - 1 .. 0
+    const int nq = (L + 63) / 64, nbox = (N + 63) / 64, nks = (N + 15) / 16;
+    const int groups = H / HG, n_bg = Bb * groups, n_work = (nq + nbox) * n_bg;
+    struct Work {
+        int job, b, h0, bx0, nbx;
+        bool ytile;
+    };
+    auto work = [&](int w) {
+        const int k = w / n_bg, bg = w % n_bg;
+        const int job = k < nbox ? nq + k : nq - 1 - (k - nbox);
+        const bool ytile = job < nq;
+        return Work{job, bg / groups, (bg % groups) * HG, ytile ? 0 : job - nq, ytile ? nbox : 1,
+                    ytile};
+    };
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 128);
+        }
+        mbar_init(cfull, 1);
+        mbar_init(cempty, 256);
+        mbar_init_fence();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 256) {   // the producer warpgroup: one thread issues every copy
+        reg_dealloc<ScanWg<HG>::PRODUCER_REGS>();
+        if (threadIdx.x == 256) {
+            int item = 0, cl = 0;   // ring stages and C tiles filled so far
+            for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+                const Work it = work(w);
+                // key tile u of the chunk at c0 into the next stage of the ring:
+                // B's boxes bx0 .. bx0 + nb - 1, and x of heads j0 .. j1 - 1
+                // (head j in x slot j - j0)
+                auto push = [&](int c0, int u, int nb, int j0, int j1) {
+                    const int s = item % STAGES;
+                    if (item >= STAGES) mbar_wait(&empty[s], ((item / STAGES) - 1) & 1);
+                    mbar_expect_tx(&full[s], (nb + j1 - j0) * BOX);
+                    unsigned char* st = ring + s * STAGE_BYTES;
+                    for (int bx = it.bx0; bx < it.bx0 + nb; ++bx)
+                        tma_load_3d(st + bx * BOX, &bmap, &full[s], 64 * bx, c0 + 64 * u, it.b);
+                    for (int j = j0; j < j1; ++j)
+                        tma_load_4d(st + (2 + j - j0) * BOX, &xmap, &full[s], 0, it.h0 + j,
+                                    c0 + 64 * u, it.b);
+                    ++item;
+                };
+                for (int c = 0; c < n_chunks; ++c) {
+                    const int c0 = c * L;
+                    if (it.ytile) {
+                        if (cl > 0) mbar_wait(cempty, (cl - 1) & 1);
+                        mbar_expect_tx(cfull, nbox * BOX);
+                        for (int bx = 0; bx < nbox; ++bx)
+                            tma_load_3d(cq + bx * BOX, &cmap, cfull, 64 * bx, c0 + 64 * it.job,
+                                        it.b);
+                        ++cl;
+                        for (int u = 0; u <= it.job; ++u) push(c0, u, nbox, 0, HG);
+                    }
+                    if (!it.ytile || c + 1 < n_chunks)   // the state: (key tile, head) pairs
+                        for (int u = 0; u < nq; ++u)
+                            for (int j = 0; j < HG; ++j) push(c0, u, it.nbx, j, j + 1);
+                }
+            }
+        }
+        return;
+    }
+
+    // consumer warpgroup wg: key tiles u = wg, wg + 2, .. of the query tile
+    // (its partial y merged into warpgroup 0's at the end); heads j = wg,
+    // wg + 2, .. of the state
+    reg_alloc<ScanWg<HG>::CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int r0 = 16 * warp + g;     // this thread's accumulator rows: r0 and r0 + 8
+    int item = 0, cl = 0;   // ring stages and C tiles consumed so far
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+        const Work it = work(w);
+        const int job = it.job, b = it.b, h0 = it.h0, bx0 = it.bx0, nbx = it.nbx;
+        const bool ytile = it.ytile;
+        for (int c = 0; c < n_chunks; ++c) {
+            const int c0 = c * L;
+            // 1. per head: the chunk's inclusive prefix of log a, two steps a
+            //    thread, in base 2 (log2 a; every exponential below is then one
+            //    exp2f: the same function, rounded within a few ulp); over all
+            //    MAXL entries, so that steps past the chunk hold cum_L. Then
+            //    exp(cum) and exp(cum_L - cum), the latter 0 past the chunk
+            //    (those rows of a key tile belong to the next chunk)
+            for (int j = wg; j < HG; j += 2) {
+                const float* ah = a + (long long)b * S * H + h0 + j;
+                const int i0 = 2 * tid;
+                float v0 = 0.f, v1 = 0.f;
+                if (i0 < L && c0 + i0 < S) v0 = log2f(fmaxf(ah[(long long)(c0 + i0) * H], 1e-37f));
+                if (i0 + 1 < L && c0 + i0 + 1 < S)
+                    v1 = log2f(fmaxf(ah[(long long)(c0 + i0 + 1) * H], 1e-37f));
+                float run = v0 + v1;
+#pragma unroll
+                for (int off = 1; off < 32; off <<= 1) {
+                    const float up = __shfl_up_sync(0xffffffffu, run, off);
+                    if (lane >= off) run += up;
+                }
+                if (lane == 31) warp_sum[wg][warp] = run;
+                bar_sync(2 + wg, 128);
+                float before = run - (v0 + v1);
+                for (int w = 0; w < warp; ++w) before += warp_sum[wg][w];
+                cum[j * MAXL + i0] = before + v0;
+                cum[j * MAXL + i0 + 1] = before + v0 + v1;
+                bar_sync(2 + wg, 128);   // warp_sum is read before the next head rewrites it
+            }
+            bar_sync(1, 256);
+            for (int i = threadIdx.x; i < HG * MAXL; i += 256) {
+                const float c_last = cum[(i / MAXL) * MAXL + L - 1];
+                ein[i] = exp2f(cum[i]);
+                eout[i] = i % MAXL < L ? exp2f(c_last - cum[i]) : 0.f;
+            }
+            bar_sync(1, 256);
+
+            if (ytile) {
+                // 2. y of query tile `job`, every head of the block
+                const int t0 = 64 * job;
+                const int tr[2] = {t0 + r0, t0 + r0 + 8};      // in the chunk
+                float acc[HG][32];
+#pragma unroll
+                for (int j = 0; j < HG; ++j)
+#pragma unroll
+                    for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+                mbar_wait(cfull, cl & 1);
+                if (c > 0 && wg == 0) {
+                    // inter-chunk: exp(cum_t) (C_t h^T), h split into bf16 high and
+                    // low parts in the 128-byte swizzle (n along a row), C exact
+#pragma unroll
+                    for (int j = 0; j < HG; ++j) {
+                        const float* hp = scratch + ((long long)(b * H + h0 + j) * nq + job) * P * N;
+                        for (int e = tid; e < 64 * 64; e += 128) {
+                            const int p = e / 64, n = 2 * (e % 64);
+                            float h0v = 0.f, h1v = 0.f;
+                            if (p < P && n < N) {
+                                h0v = hp[p * N + n];
+                                h1v = hp[p * N + n + 1];
+                            }
+                            uint32_t hi, lo;
+                            split_bf16x2(h0v, h1v, hi, lo);
+                            const int off = (n / 64) * BOX + sw128(p, n % 64);
+                            *reinterpret_cast<uint32_t*>(hsplit + off) = hi;
+                            *reinterpret_cast<uint32_t*>(hsplit + 2 * BOX + off) = lo;
+                        }
+                        fence_proxy_async();
+                        bar_sync(2, 128);
+                        wgmma_fence();
+#pragma unroll
+                        for (int part = 0; part < 2; ++part)
+#pragma unroll
+                            for (int kk = 0; kk < MAXN / 16; ++kk) {
+                                if (kk >= nks) break;
+                                const int k_off = (kk / 4) * BOX + (kk % 4) * 32;
+                                wgmma_ss(acc[j], wgmma_desc(cq + k_off),
+                                         wgmma_desc(hsplit + part * 2 * BOX + k_off), 1);
+                            }
+                        wgmma_commit();
+                        wgmma_wait<0>();
+                        reg_fence(acc[j]);
+                        const float e0 = ein[j * MAXL + tr[0]], e1 = ein[j * MAXL + tr[1]];
+#pragma unroll
+                        for (int e = 0; e < 32; ++e) acc[j][e] *= (e & 2) ? e1 : e0;
+                        bar_sync(2, 128);   // every warp's product has read hsplit
+                    }
+                }
+
+                for (int u = wg; u <= job; u += 2) {
+                    const int it = item + u;
+                    const int s = it % STAGES;
+                    mbar_wait(&full[s], (it / STAGES) & 1);
+                    const unsigned char* bs = ring + s * STAGE_BYTES;
+                    // scores C_t B_u^T over N, once for every head of the block
+                    float sc[32];
+                    wgmma_fence();
+#pragma unroll
+                    for (int kk = 0; kk < MAXN / 16; ++kk) {
+                        if (kk >= nks) break;
+                        const int k_off = (kk / 4) * BOX + (kk % 4) * 32;
+                        wgmma_ss(sc, wgmma_desc(cq + k_off), wgmma_desc(bs + k_off), kk > 0);
+                    }
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                    reg_fence(sc);
+#pragma unroll
+                    for (int j = 0; j < HG; ++j)
+                        decayed_scores_times_x(acc[j], sc, cum + j * MAXL, tr, 64 * u,
+                                               bs + (2 + j) * BOX, t4);
+                    mbar_arrive(&empty[s]);
+                }
+                item += job + 1;
+                mbar_arrive(cempty);
+                ++cl;
+
+                // warpgroup 1's partial y into warpgroup 0's, then y out
+                if (wg == 1)
+#pragma unroll
+                    for (int j = 0; j < HG; ++j)
+#pragma unroll
+                        for (int e = 0; e < 32; ++e) xacc[(j * 32 + e) * 128 + tid] = acc[j][e];
+                bar_sync(1, 256);
+                if (wg == 0) {
+#pragma unroll
+                    for (int j = 0; j < HG; ++j)
+#pragma unroll
+                        for (int r = 0; r < 2; ++r) {
+                            const int s = c0 + tr[r];
+                            if (tr[r] >= L || s >= S) continue;
+                            __nv_bfloat16* yr = y + (((long long)b * S + s) * H + h0 + j) * P;
+#pragma unroll
+                            for (int jn = 0; jn < 8; ++jn) {
+                                const int p = 8 * jn + 2 * t4, e = 4 * jn + 2 * r;
+                                if (p >= P) break;
+                                *reinterpret_cast<uint32_t*>(yr + p) = pack_bf16x2(
+                                    acc[j][e] + xacc[(j * 32 + e) * 128 + tid],
+                                    acc[j][e + 1] + xacc[(j * 32 + e + 1) * 128 + tid]);
+                            }
+                        }
+                }
+            }
+
+            if (!ytile || c + 1 < n_chunks) {
+                // 3. state: h = exp(cum_L) h + (x o exp(cum_L - cum))^T B over the
+                //    chunk's key tiles, for B's boxes bx0 .. bx0 + nbx - 1; warp w
+                //    owns rows p of 16 w .. 16 w + 15. The decayed x, split into
+                //    high and low parts, is the register A operand (each k-group's
+                //    while the previous one's products run); B is MN-major. A
+                //    query-tile block carries its own copy (scratch) into the next
+                //    chunk; a state block's is the output.
+                for (int j = wg; j < HG; j += 2) {
+                    const float* ej = eout + j * MAXL;
+                    float hacc[2][32];
+#pragma unroll
+                    for (int bi = 0; bi < 2; ++bi)
+#pragma unroll
+                        for (int e = 0; e < 32; ++e) hacc[bi][e] = 0.f;
+                    for (int u = 0; u < nq; ++u) {
+                        const int it = item + u * HG + j;
+                        const int s = it % STAGES;
+                        mbar_wait(&full[s], (it / STAGES) & 1);
+                        const unsigned char* bs = ring + s * STAGE_BYTES;
+                        const unsigned char* xs = bs + 2 * BOX;
+                        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+                        for (int bi = 0; bi < 2; ++bi) reg_fence(hacc[bi]);
+#pragma unroll
+                        for (int kg = 0; kg < 4; ++kg) {
+                            const int bf = kg & 1;
+                            // matrix i: steps 16 kg + 8 (i / 2) .., columns p of
+                            // 16 warp + 8 (i % 2) ..; transposed, register i is
+                            // the A fragment's a_i
+                            uint32_t xf[4];
+                            ldmatrix_x4_trans(xf, xs + sw128(kg * 16 + (lane & 7) + (lane >> 4) * 8,
+                                                             warp * 16 + ((lane >> 3) & 1) * 8));
+                            const int uu = 64 * u + kg * 16 + 2 * t4;   // in the chunk
+                            const float e0 = ej[uu], e1 = ej[uu + 1], e8 = ej[uu + 8], e9 = ej[uu + 9];
+                            split_bf16x2(bf16_lo(xf[0]) * e0, bf16_hi(xf[0]) * e1, ah[bf][0], al[bf][0]);
+                            split_bf16x2(bf16_lo(xf[1]) * e0, bf16_hi(xf[1]) * e1, ah[bf][1], al[bf][1]);
+                            split_bf16x2(bf16_lo(xf[2]) * e8, bf16_hi(xf[2]) * e9, ah[bf][2], al[bf][2]);
+                            split_bf16x2(bf16_lo(xf[3]) * e8, bf16_hi(xf[3]) * e9, ah[bf][3], al[bf][3]);
+                            wgmma_fence();
+#pragma unroll
+                            for (int bi = 0; bi < 2; ++bi) {
+                                if (bi >= nbx) break;
+                                const uint64_t db = wgmma_desc(bs + (bx0 + bi) * BOX + kg * 16 * 128);
+                                wgmma_rs<1>(hacc[bi], ah[bf], db, 1);
+                                wgmma_rs<1>(hacc[bi], al[bf], db, 1);
+                            }
+                            wgmma_commit();
+                            wgmma_wait<1>();   // the previous k-group is done: its registers are free
+                            reg_fence(ah[bf ^ 1]);
+                            reg_fence(al[bf ^ 1]);
+                        }
+                        wgmma_wait<0>();
+#pragma unroll
+                        for (int bi = 0; bi < 2; ++bi) reg_fence(hacc[bi]);
+                        reg_fence(ah[1]);
+                        reg_fence(al[1]);
+                        mbar_arrive(&empty[s]);
+                    }
+                    const float a_chunk = exp2f(cum[j * MAXL + L - 1]);
+                    float* hp = ytile ? scratch + ((long long)(b * H + h0 + j) * nq + job) * P * N
+                                      : state + (long long)(b * H + h0 + j) * P * N;
+#pragma unroll
+                    for (int bi = 0; bi < 2; ++bi) {
+                        if (bi >= nbx) break;
+#pragma unroll
+                        for (int e = 0; e < 32; ++e) {
+                            const int p = r0 + 8 * ((e >> 1) & 1);
+                            const int n = 64 * (bx0 + bi) + 8 * (e >> 2) + 2 * t4 + (e & 1);
+                            if (p >= P || n >= N) continue;
+                            float v = hacc[bi][e];
+                            if (c > 0) v += a_chunk * hp[p * N + n];
+                            hp[p * N + n] = v;
+                        }
+                    }
+                }
+                item += nq * HG;
+            }
+        }
+    }
+}
+
 // ---------------------------------------------------------------------------
 // launches
 
@@ -637,19 +1066,64 @@ cudaError_t launch_mma(const void* x, const void* a, const void* B, const void* 
     return cudaGetLastError();
 }
 
+
+template <int HG>
+cudaError_t launch_wgmma_hg(const void* x, const void* a, const void* B, const void* C, void* y,
+                            void* state, void* scratch, int Bb, int S, int H, int P, int N,
+                            int L, cudaStream_t stream) {
+    const cuuint64_t es = sizeof(__nv_bfloat16);
+    const cuuint64_t xdims[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)Bb};
+    const cuuint64_t xstr[3] = {P * es, (cuuint64_t)H * P * es, (cuuint64_t)S * H * P * es};
+    const cuuint32_t xbox[4] = {64, 1, 64, 1};
+    const cuuint64_t bdims[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)Bb};
+    const cuuint64_t bstr[2] = {N * es, (cuuint64_t)S * N * es};
+    const cuuint32_t bbox[3] = {64, 64, 1};
+    CUtensorMap xm, bm, cm;
+    if (!bf16_map(&xm, x, 4, xdims, xstr, xbox) || !bf16_map(&bm, B, 3, bdims, bstr, bbox)
+        || !bf16_map(&cm, C, 3, bdims, bstr, bbox))
+        return cudaErrorInvalidValue;
+    const size_t smem = ScanWg<HG>::smem(S > L);
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_scan_wgmma_kernel<HG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return err;
+    // persistent: one block an SM (the register file holds one), walking the work items
+    const int n_work = ((L + 63) / 64 + (N + 63) / 64) * Bb * (H / HG);
+    const int blocks = min(n_work, sms);
+    ssd_scan_wgmma_kernel<HG><<<blocks, ScanWg<HG>::THREADS, smem, stream>>>(
+        xm, bm, cm, static_cast<const float*>(a), static_cast<__nv_bfloat16*>(y),
+        static_cast<float*>(state), static_cast<float*>(scratch), Bb, S, H, P, N, L);
+    return cudaGetLastError();
+}
+
+// two heads a block where H is even (C B^T computed once for both), else one
+cudaError_t launch_wgmma(const void* x, const void* a, const void* B, const void* C, void* y,
+                         void* state, void* scratch, int Bb, int S, int H, int P, int N, int L,
+                         cudaStream_t stream) {
+    if (S > L && scratch == nullptr) return cudaErrorInvalidValue;
+    return H % 2 == 0
+               ? launch_wgmma_hg<2>(x, a, B, C, y, state, scratch, Bb, S, H, P, N, L, stream)
+               : launch_wgmma_hg<1>(x, a, B, C, y, state, scratch, Bb, S, H, P, N, L, stream);
+}
+
 }  // namespace
 
-// dtype (of x, B, C and y): 0 float32 (the CUDA-core kernel), 1 bfloat16 (the
-// tensor-core kernel). Limits: P <= 64, N <= 128, 1 <= L <= 256. Returns
-// cudaGetLastError() after the launch.
+// route: 0 float32 (the CUDA-core kernel), 1 bfloat16 on mma.sync, 2
+// bfloat16 on wgmma. Limits: P <= 64, N <= 128, 1 <= L <= 256. scratch: the
+// wgmma kernel's private states when S > L (see _scratch_floats in
+// ssd_scan.py), else unused. Returns cudaGetLastError() after the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* B, const void* C,
-                            void* y, void* state, int dtype, int Bb, int S, int H, int P,
-                            int N, int L, void* stream) {
+                            void* y, void* state, void* scratch, int route, int Bb, int S,
+                            int H, int P, int N, int L, void* stream) {
     if (P < 1 || P > MAXP || N < 1 || N > MAXN || L < 1 || L > MAXL) return cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
+    switch (route) {
         case 0: return launch_f32(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
         case 1: return launch_mma(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
+        case 2: return launch_wgmma(x, a, B, C, y, state, scratch, Bb, S, H, P, N, L, st);
         default: return cudaErrorInvalidValue;
     }
 }

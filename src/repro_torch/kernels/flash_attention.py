@@ -10,12 +10,21 @@ q's dtype.
 
 What bounds it on the card: bytes at the one-shot path's shapes (gemma-2b,
 B 4, S 256, H 8, KV 1, D 256, bf16: 9.4 MB against 2.1 GFLOP, 2.8 us at
-3.35 TB/s). The dtype picks the kernel (:data:`ROUTES`): bf16 operands run
-on the tensor cores (``mma.sync``, bf16 products into float32, the
-probabilities rounded to bf16 once before PV); float32 operands run on the
-CUDA cores in float32 throughout, since bf16 or TF32 tensor cores cannot
-meet the float32 check. The source says how each lays out its tiles; the
-times are in PERF.md.
+3.35 TB/s). Three kernels, one per route; :func:`route` picks it from the
+operands alone (a pure function, so the CPU tests reach it):
+
+* ``wgmma``: bf16 operands that a TMA tensor map can describe (every base
+  pointer 16-byte aligned, D in :data:`WGMMA_HEAD_DIMS`) run
+  ``flash_fwd_wgmma_kernel``: K/V tiles in a ring of shared-memory stages
+  filled by TMA with mbarrier completion, products by warpgroup ``wgmma``;
+* ``mma_sync``: other bf16 operands (an unaligned view, D 32) run
+  ``flash_fwd_mma_kernel`` (``mma.sync`` fed by ``cp.async``);
+* ``cuda_cores``: float32 operands run ``flash_fwd_kernel`` in float32
+  throughout, since bf16 or TF32 tensor cores cannot meet the float32 check.
+
+Both bf16 kernels keep float32 softmax statistics and accumulators and
+round the probabilities to bf16 once before PV. The source says how each
+lays out its tiles; the times are in PERF.md.
 
 A CUDA tensor launches the kernel of its route (``flash_attention.launches``
 counts every launch, ``flash_attention.route_launches`` each route's); a
@@ -31,12 +40,15 @@ import torch
 from . import build, ref
 from .runtime import use_kernel
 
-HEAD_DIMS = (32, 64, 128, 256)       # the kernel's instantiations
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel each dtype launches: flash_fwd_mma_kernel or flash_fwd_kernel
-ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+HEAD_DIMS = (32, 64, 128, 256)       # the kernels' instantiations
+WGMMA_HEAD_DIMS = (64, 128, 256)     # flash_fwd_wgmma_kernel's
+_DTYPES = (torch.float32, torch.bfloat16)
+# each route's code in the C entry's switch (flash_fwd_kernel,
+# flash_fwd_mma_kernel, flash_fwd_wgmma_kernel)
+ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
+ROUTES = tuple(ROUTE_CODES)
 _MAX_GRID_Y = 65535                  # B * H rides on grid axis 1
-# flash_attention_fwd(q, k, v, out, dtype, B, Sq, Sk, H, KV, D, causal,
+# flash_attention_fwd(q, k, v, out, route, B, Sq, Sk, H, KV, D, causal,
 #                     window, scale, stream)
 ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -64,20 +76,39 @@ def _check(q, k, v, window) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn, q, k, v, causal: bool, window: int, stream) -> torch.Tensor:
+def route(q, k, v) -> str:
+    """The route of a launch on these operands: ``cuda_cores`` for float32,
+    ``wgmma`` for bf16 that TMA can describe (16-byte aligned base pointers;
+    contiguous rows of D in :data:`WGMMA_HEAD_DIMS`, a multiple of 16 bytes),
+    ``mma_sync`` for any other bf16."""
+    if q.dtype == torch.float32:
+        return "cuda_cores"
+    if q.shape[-1] in WGMMA_HEAD_DIMS and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "wgmma"
+    return "mma_sync"
+
+
+def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None) -> torch.Tensor:
     """Check the operands, allocate the output and launch ``fn`` on
-    ``stream``; raise on a nonzero CUDA error."""
+    ``stream`` on the operands' route (``route_name`` picks another route
+    that takes them: ``mma_sync`` for any bf16, to time it beside
+    ``wgmma``); raise on a nonzero CUDA error."""
     _check(q, k, v, window)
+    own = route(q, k, v)
+    name = route_name or own
+    if name not in ROUTE_CODES or (name == "wgmma" and own != "wgmma") \
+            or (name == "cuda_cores") != (own == "cuda_cores"):
+        raise ValueError(f"route {name!r} does not take these operands (theirs: {own!r})")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, sq, sk, h, kv, d, 1 if causal else 0, window,
+             ROUTE_CODES[name], b, sq, sk, h, kv, d, 1 if causal else 0, window,
              1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    flash_attention.route_launches[ROUTES[q.dtype]] += 1
+    flash_attention.route_launches[name] += 1
     return out
 
 
@@ -93,4 +124,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = dict.fromkeys(ROUTES.values(), 0)
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -10,14 +10,23 @@ state (Bb, H, P, N) in float32.
 
 What bounds it on the card: bytes at the one-shot path's shapes
 (mamba2-2.7b, Bb 4, S 256, H 80, P 64, N 128, chunk 256, bf16: 32.3 MB
-against 6.7 GFLOP of lower-triangle work, 9.6 us at 3.35 TB/s). One block
-per (batch, head) walks the chunks in order with the float32 state on chip.
-The dtype of x, B and C picks the kernel (:data:`ROUTES`): bf16 runs on the
-tensor cores (``mma.sync``; the float32 factors, the decayed scores, the
-decayed x and the state, split into bf16 high and low parts against the
-exact bf16 operands); float32 runs on the CUDA cores in float32 throughout,
-since bf16 or TF32 tensor cores cannot meet the float32 check. The times
-are in PERF.md.
+against 6.7 GFLOP of lower-triangle work, 9.6 us at 3.35 TB/s). Three
+kernels, one per route; :func:`route` picks it from the operands alone (a
+pure function, so the CPU tests reach it):
+
+* ``wgmma``: bf16 x, B and C that a TMA tensor map can describe (base
+  pointers 16-byte aligned, P and N multiples of 8) run
+  ``ssd_scan_wgmma_kernel``: C B^T computed once per (batch, chunk, query
+  tile) for the heads a block owns, tiles by TMA into an mbarrier ring, the
+  products by warpgroup ``wgmma``;
+* ``mma_sync``: other bf16 operands run ``ssd_scan_mma_kernel``, one block
+  per (batch, head) on ``mma.sync``;
+* ``cuda_cores``: float32 runs ``ssd_scan_kernel`` in float32 throughout,
+  since bf16 or TF32 tensor cores cannot meet the float32 check.
+
+Both bf16 kernels split the float32 factors (the decayed scores, the
+decayed x, the state) into bf16 high and low parts against the exact bf16
+operands. The times are in PERF.md.
 
 A CUDA tensor launches the kernel of its route (``ssd_scan.launches`` counts
 every launch, ``ssd_scan.route_launches`` each route's); a CPU tensor takes
@@ -33,11 +42,14 @@ from . import build, ref
 from .runtime import use_kernel
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel each dtype launches: ssd_scan_mma_kernel or ssd_scan_kernel
-ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
-# ssd_scan_fwd(x, a, B, C, y, state, dtype, Bb, S, H, P, N, L, stream)
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+TILE = 64                      # steps per query tile of the wgmma kernel
+_DTYPES = (torch.float32, torch.bfloat16)
+# each route's code in the C entry's switch (ssd_scan_kernel,
+# ssd_scan_mma_kernel, ssd_scan_wgmma_kernel)
+ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
+ROUTES = tuple(ROUTE_CODES)
+# ssd_scan_fwd(x, a, B, C, y, state, scratch, route, Bb, S, H, P, N, L, stream)
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _check(x, a, B, C, chunk) -> None:
@@ -66,20 +78,55 @@ def _check(x, a, B, C, chunk) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn, x, a, B, C, chunk: int, stream):
-    """Check the operands, allocate y and the state and launch ``fn`` on
-    ``stream``; raise on a nonzero CUDA error."""
+def route(x, B, C) -> str:
+    """The route of a launch on these operands: ``cuda_cores`` for float32,
+    ``wgmma`` for bf16 that TMA can describe (16-byte aligned base pointers,
+    P and N multiples of 8, so that every row stride is a multiple of 16
+    bytes), ``mma_sync`` for any other bf16."""
+    if x.dtype == torch.float32:
+        return "cuda_cores"
+    if x.shape[-1] % 8 == 0 and B.shape[-1] % 8 == 0 \
+            and all(t.data_ptr() % 16 == 0 for t in (x, B, C)):
+        return "wgmma"
+    return "mma_sync"
+
+
+def _scratch_floats(bb, s, h, p, n, chunk) -> int:
+    """Float32 scratch the wgmma kernel needs: a private state (P x N) for
+    each query-tile block of each (batch, head) when S spans more than one
+    chunk (each such block carries the state across chunks itself); none
+    for one chunk."""
+    L = min(chunk, s)
+    return 0 if s <= L else bb * h * -(-L // TILE) * p * n
+
+
+def _launch(fn, x, a, B, C, chunk: int, stream, route_name=None):
+    """Check the operands, allocate y, the state (and the wgmma kernel's
+    scratch) and launch ``fn`` on ``stream`` on the operands' route
+    (``route_name`` picks another route that takes them: ``mma_sync`` for
+    any bf16, to time it beside ``wgmma``); raise on a nonzero CUDA
+    error."""
     _check(x, a, B, C, chunk)
+    own = route(x, B, C)
+    name = route_name or own
+    if name not in ROUTE_CODES or (name == "wgmma" and own != "wgmma") \
+            or (name == "cuda_cores") != (own == "cuda_cores"):
+        raise ValueError(f"route {name!r} does not take these operands (theirs: {own!r})")
     bb, s, h, p = x.shape
     n = B.shape[2]
     y = torch.empty_like(x)
     state = torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = None
+    if name == "wgmma" and _scratch_floats(bb, s, h, p, n, chunk):
+        scratch = torch.empty(_scratch_floats(bb, s, h, p, n, chunk), dtype=torch.float32,
+                              device=x.device)
     err = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-             state.data_ptr(), _DTYPES[x.dtype], bb, s, h, p, n, min(chunk, s), stream)
+             state.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+             ROUTE_CODES[name], bb, s, h, p, n, min(chunk, s), stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1
-    ssd_scan.route_launches[ROUTES[x.dtype]] += 1
+    ssd_scan.route_launches[name] += 1
     return y, state
 
 
@@ -96,4 +143,4 @@ def ssd_scan(x, a, B, C, *, chunk: int = 128):
 
 
 ssd_scan.launches = 0
-ssd_scan.route_launches = dict.fromkeys(ROUTES.values(), 0)
+ssd_scan.route_launches = dict.fromkeys(ROUTES, 0)

@@ -11,9 +11,12 @@ to the plain version at the served shape (K1 is built without FMA
 contraction); K2 and K3 at
 the JAX kernel tests' own tolerances (K2 2e-5 float32 and 2e-2 bf16, K3
 2e-4 float32 and 5e-2 bf16: other summation orders, a bf16 rounding of the
-output that a last-bit difference can flip). bf16 operands run K2's and
-K3's tensor-core kernels, float32 operands their CUDA-core kernels; each
-case checks that its route's launch count, and only that, went up.
+output that a last-bit difference can flip). Each case checks that its
+route's launch count, and only that, went up: bf16 operands that TMA can
+describe run K2's and K3's wgmma kernels, other bf16 (D 32, odd widths,
+unaligned views) their mma.sync kernels, float32 their CUDA-core kernels;
+the mma.sync kernels are also held over the same shapes by asking for
+their route.
 
 The training slice's card tests: a float32 train step against the CPU
 (loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
@@ -106,16 +109,15 @@ def _tol(dtype, f32, bf16):
     return dict(rtol=bf16, atol=bf16) if dtype == torch.bfloat16 else dict(rtol=f32, atol=f32)
 
 
-def _launched_once(fn, routes, dtype, before, before_routes):
-    """fn launched once since ``before``, on ``dtype``'s route."""
+def _launched_once(fn, route, before, before_routes):
+    """fn launched once since ``before``, on ``route``."""
     want = dict(before_routes)
-    want[routes[dtype]] += 1
+    want[route] += 1
     assert fn.launches == before + 1
     assert fn.route_launches == want
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", [
+FA_CASES = [
     (2, 64, 64, 4, 4, 32, True, 0),
     (1, 128, 128, 8, 2, 64, True, 0),      # GQA
     (2, 96, 96, 4, 1, 32, True, 0),        # MQA, ragged tiles
@@ -129,14 +131,29 @@ def _launched_once(fn, routes, dtype, before, before_routes):
     (4, 256, 256, 6, 6, 64, False, 0),     # whisper-tiny's decoder: D 64
     (4, 512, 512, 8, 1, 256, False, 0),    # paligemma-3b's prefix and text: S 512
     (4, 256, 256, 32, 2, 128, False, 0),   # glm4-9b's: GQA 32/2
-])
-def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
+]
+
+
+def _fa_route(dtype, d):
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wgmma" if d in FA.WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, route=None):
+    """K2 on its route (``route``: asked for) against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
     n = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = n(b, sq, h, d), n(b, sk, kv, d), n(b, sk, kv, d)
     before, routes = FA.flash_attention.launches, dict(FA.flash_attention.route_launches)
-    got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    _launched_once(FA.flash_attention, FA.ROUTES, dtype, before, routes)
+    if route is None:
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        from repro_torch.kernels import build
+        fn = build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES)
+        got = FA._launch(fn, q, k, v, causal, window, torch.cuda.current_stream().cuda_stream,
+                         route)
+    _launched_once(FA.flash_attention, route or _fa_route(dtype, d), before, routes)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
@@ -144,7 +161,19 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
+    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
+def test_cuda_flash_attention_mma_sync_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window):
+    """The mma.sync kernel, asked for on bf16 operands that the
+    wgmma kernel would take, over the same shapes."""
+    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.bfloat16, route="mma_sync")
+
+
+SS_CASES = [
     (2, 64, 2, 16, 8, 16),
     (1, 96, 3, 8, 16, 32),
     (1, 50, 2, 16, 8, 16),      # seq not a chunk multiple
@@ -152,15 +181,26 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, w
     (1, 300, 4, 64, 128, 256),  # mamba2's head and state at chunk 256, padded
     (2, 100, 3, 64, 8, 64),     # N 8, below one 16-wide k-step, at P 64
     (1, 77, 2, 12, 20, 32),     # widths that are no multiple of 8 (element loads)
-])
-def test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+]
+
+
+def _ss_check(cuda, b, s, h, p, n, chunk, dtype, route=None):
+    """K3 on its route (``route``: asked for) against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(s + h + p)
     r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
     x, B, C = r(b, s, h, p).to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(dtype)
     a = torch.rand((b, s, h), generator=g, device=cuda) * 0.299 + 0.7
     before, routes = SS.ssd_scan.launches, dict(SS.ssd_scan.route_launches)
-    y, st = SS.ssd_scan(x, a, B, C, chunk=chunk)
-    _launched_once(SS.ssd_scan, SS.ROUTES, dtype, before, routes)
+    if route is None:
+        y, st = SS.ssd_scan(x, a, B, C, chunk=chunk)
+        own = "cuda_cores" if dtype == torch.float32 else \
+            "wgmma" if p % 8 == 0 and n % 8 == 0 else "mma_sync"
+    else:
+        from repro_torch.kernels import build
+        fn = build.entry("ssd_scan", "ssd_scan_fwd", SS.ARGTYPES)
+        y, st = SS._launch(fn, x, a, B, C, chunk, torch.cuda.current_stream().cuda_stream, route)
+        own = route
+    _launched_once(SS.ssd_scan, own, before, routes)
     y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
     torch.cuda.synchronize()
     tol = _tol(dtype, 2e-4, 5e-2)
@@ -168,14 +208,36 @@ def test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     torch.testing.assert_close(st, st_w, **tol)
 
 
-@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
+def test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    _ss_check(cuda, b, s, h, p, n, chunk, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
+def test_cuda_ssd_scan_mma_sync_matches_plain(cuda, b, s, h, p, n, chunk):
+    """The mma.sync kernel, asked for on bf16 operands, over the
+    same shapes."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, route="mma_sync")
+
+
+MAMBA2_CASES = [
     (2, 1000, 2, 64, 128, 256),  # four chunks at mamba2's widths, the last padded
     (4, 256, 80, 64, 128, 256),  # mamba2-2.7b's full width, one chunk
-])
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA2_CASES)
 def test_cuda_ssd_scan_bf16_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chunk):
-    """The tensor-core kernel's state carried over several chunks, and the
+    """The wgmma kernel's state carried over several chunks, and the
     one-shot path's own shape, in bf16 at the JAX test's 5e-2."""
-    test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, torch.bfloat16)
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA2_CASES)
+def test_cuda_ssd_scan_mma_sync_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chunk):
+    """The same on the mma.sync kernel, asked for."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, route="mma_sync")
 
 
 def _unaligned(t):
@@ -188,18 +250,23 @@ def _unaligned(t):
 
 
 def test_cuda_tensor_core_kernels_take_unaligned_views(cuda):
-    """bf16 operands that cp.async cannot copy 16 bytes at a time (a view at
-    an odd offset) are loaded element by element, with the same results."""
+    """bf16 operands that neither TMA nor cp.async can copy 16 bytes at a
+    time (a view at an odd offset) take the mma.sync route, loaded element
+    by element, with the same results."""
     g = torch.Generator(device=cuda).manual_seed(5)
     n = lambda *s: torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
     q, k, v = n(2, 70, 4, 64), n(2, 70, 2, 64), n(2, 70, 2, 64)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=20)
+    before, routes = FA.flash_attention.launches, dict(FA.flash_attention.route_launches)
     got = FA.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=True, window=20)
+    _launched_once(FA.flash_attention, "mma_sync", before, routes)
     torch.testing.assert_close(got.float(), want.float(), **_tol(torch.bfloat16, 2e-5, 2e-2))
     x, B, C = n(1, 90, 3, 32), n(1, 90, 16), n(1, 90, 16)
     a = torch.rand((1, 90, 3), generator=g, device=cuda) * 0.299 + 0.7
     y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=64)
+    before, routes = SS.ssd_scan.launches, dict(SS.ssd_scan.route_launches)
     y, st = SS.ssd_scan(_unaligned(x), a, _unaligned(B), _unaligned(C), chunk=64)
+    _launched_once(SS.ssd_scan, "mma_sync", before, routes)
     tol = _tol(torch.bfloat16, 2e-4, 5e-2)
     torch.testing.assert_close(y.float(), y_w.float(), **tol)
     torch.testing.assert_close(st, st_w, **tol)

@@ -1,30 +1,39 @@
-"""Which kernel each dtype takes in K2 (flash attention) and K3 (SSD scan),
-on the CPU: bf16 operands launch the tensor-core kernel and float32
-operands the CUDA-core kernel of the same source, the wrapper counts each
-launch on its route, and CPU tensors (the plain versions) launch nothing.
-The kernels themselves run only on the card (``tests/test_torch_cuda.py``);
-here the C entry points' dtype switch is held to the wrappers' routes."""
+"""Which kernel a launch takes in K2 (flash attention) and K3 (SSD scan),
+on the CPU. Three routes, picked by a pure function of the operands:
+``wgmma`` for bf16 that a TMA tensor map can describe (16-byte aligned base
+pointers; K2: D 64, 128 or 256; K3: P and N multiples of 8), ``mma_sync``
+for any other bf16, ``cuda_cores`` for float32. The wrapper hands the C
+entry the route's code and counts each launch on its route; CPU tensors
+(the plain versions) launch nothing. The kernels themselves run only on the
+card (``tests/test_torch_cuda.py``); here the C entry points' route switch
+is held to the wrappers' routes."""
 import re
 from pathlib import Path
 
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ssd_scan as SS
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 DTYPES = [torch.bfloat16, torch.float32]
 # per source: its C entry point, and per route the call in the entry's
-# dtype switch, the launcher that call reaches and the kernel it starts
+# route switch, the launcher that call reaches and the kernel it starts
 SOURCES = {
     "flash_attention": ("flash_attention_fwd", {
-        "tensor_cores": ("launch_dim<true>", "launch_mma", "flash_fwd_mma_kernel"),
+        "wgmma": ("launch_wgmma_dim", "launch_wgmma", "flash_fwd_wgmma_kernel"),
+        "mma_sync": ("launch_dim<true>", "launch_mma", "flash_fwd_mma_kernel"),
         "cuda_cores": ("launch_dim<false>", "launch_f32", "flash_fwd_kernel")}),
     "ssd_scan": ("ssd_scan_fwd", {
-        "tensor_cores": ("launch_mma", "launch_mma", "ssd_scan_mma_kernel"),
+        "wgmma": ("launch_wgmma", "launch_wgmma_hg", "ssd_scan_wgmma_kernel"),
+        "mma_sync": ("launch_mma", "launch_mma", "ssd_scan_mma_kernel"),
         "cuda_cores": ("launch_f32", "launch_f32", "ssd_scan_kernel")}),
 }
+# the one-shot path's attention (B, S, H, KV, D) and scan (Bb, S, H, P, N)
+# shapes, cut to a short sequence: the route does not depend on B or S
+MAIN_PATH_ARCHS = ["gemma_2b", "mixtral_8x7b", "whisper_tiny", "paligemma_3b", "mamba2_2p7b"]
 
 
 def _operands(mod, dtype):
@@ -32,33 +41,115 @@ def _operands(mod, dtype):
     g = torch.Generator().manual_seed(0)
     n = lambda *s: torch.randn(s, generator=g).to(dtype)
     if mod is FA:
-        return (n(1, 8, 2, 32), n(1, 8, 1, 32), n(1, 8, 1, 32))
+        return (n(1, 8, 2, 64), n(1, 8, 1, 64), n(1, 8, 1, 64))
     return (n(1, 8, 2, 16), torch.rand((1, 8, 2), generator=g) * 0.3 + 0.7,
-            n(1, 8, 4), n(1, 8, 4))
+            n(1, 8, 8), n(1, 8, 8))
+
+
+def _arch_operands(arch, dtype=torch.bfloat16, seq=8):
+    """Operands of K2 or K3 at ``arch``'s head widths, as the one-shot path
+    makes them (contiguous, freshly allocated)."""
+    cfg = get_config(arch)
+    if cfg.ssm is not None:
+        p, n = cfg.ssm.head_dim, cfg.ssm.state_dim
+        h = cfg.ssm.expand * cfg.d_model // p
+        return SS, (torch.zeros(1, seq, h, p, dtype=dtype), torch.ones(1, seq, h),
+                    torch.zeros(1, seq, n, dtype=dtype), torch.zeros(1, seq, n, dtype=dtype))
+    d = cfg.resolved_head_dim
+    return FA, (torch.zeros(1, seq, cfg.n_heads, d, dtype=dtype),
+                torch.zeros(1, seq, cfg.n_kv_heads, d, dtype=dtype),
+                torch.zeros(1, seq, cfg.n_kv_heads, d, dtype=dtype))
+
+
+def _route(mod, ops):
+    return mod.route(*ops) if mod is FA else mod.route(ops[0], ops[2], ops[3])
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte line."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
 
 
 def _wrapper(mod):
     return mod.flash_attention if mod is FA else mod.ssd_scan
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"),
-                                         (torch.float32, "cuda_cores")])
+def _launch(mod, entry, ops, route=None):
+    if mod is FA:
+        return mod._launch(entry, *ops, True, 0, None, route)
+    return mod._launch(entry, *ops, 8, None, route)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync", "cuda_cores"])
 @pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
-def test_dtype_takes_its_route_in_the_c_entry(mod, dtype, route):
-    """The wrapper's route for a dtype is what the C entry's dtype switch
-    calls for that dtype's code, and that launcher starts the route's
-    kernel."""
+def test_dtype_takes_its_route_in_the_c_entry(mod, route):
+    """The C entry's switch calls, for each route's code, that route's
+    launcher, and that launcher starts the route's kernel."""
     name = mod.__name__.rsplit(".", 1)[1]
     entry, routes = SOURCES[name]
     call, launcher, kernel = routes[route]
-    assert mod.ROUTES[dtype] == route
+    assert set(mod.ROUTES) == set(routes) == set(mod.ROUTE_CODES)
     src = (CSRC / f"{name}.cu").read_text()
     switch = src[src.index(f'extern "C" int {entry}('):]
-    assert f"case {mod._DTYPES[dtype]}: return {call}(" in switch
+    assert f"case {mod.ROUTE_CODES[route]}: return {call}(" in switch
     body = re.search(rf"cudaError_t {launcher}\((.*?)\n}}\n", src, re.S).group(1)
-    assert re.search(rf"\b{kernel}(<\w+>)?<<<", body)
+    if call != launcher:   # a dispatcher in between: it reaches the launcher
+        dispatch = re.search(rf"cudaError_t {re.escape(call.split('<')[0])}\((.*?)\n}}\n",
+                             src, re.S).group(1)
+        assert re.search(rf"\b{launcher}(<[^<>()]*>)?\(", dispatch) or "FA_LAUNCH" in dispatch
+    assert re.search(rf"\b{kernel}(<[^<>()]*>)?<<<", body)
     if call.startswith("launch_dim"):   # K2 picks the launcher by the template flag
         assert "MMA ? launch_mma<DIM>(" in src and ": launch_f32<DIM>(" in src
+
+
+@pytest.mark.parametrize("arch", MAIN_PATH_ARCHS)
+def test_main_path_shapes_take_wgmma(arch):
+    """Every shape the one-shot path gives K2 and K3 in bf16 takes the
+    wgmma route."""
+    mod, ops = _arch_operands(arch)
+    assert _route(mod, ops) == "wgmma"
+
+
+@pytest.mark.parametrize("arch", MAIN_PATH_ARCHS)
+def test_float32_takes_cuda_cores(arch):
+    mod, ops = _arch_operands(arch, torch.float32)
+    assert _route(mod, ops) == "cuda_cores"
+
+
+@pytest.mark.parametrize("arch", MAIN_PATH_ARCHS)
+def test_unaligned_views_take_mma_sync(arch):
+    """bf16 operands whose data do not start on a 16-byte line: no tensor
+    map can describe them, so the mma_sync kernel takes them."""
+    mod, ops = _arch_operands(arch)
+    ops = tuple(_unaligned(t) if t.dtype == torch.bfloat16 else t for t in ops)
+    assert _route(mod, ops) == "mma_sync"
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((1, 8, 2, 32), "mma_sync"),      # D 32: no wgmma instantiation
+    ((1, 8, 2, 64), "wgmma"),
+    ((1, 8, 2, 128), "wgmma"),
+    ((1, 8, 2, 256), "wgmma"),
+])
+def test_flash_attention_head_dims(shape, route):
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    k = torch.zeros(shape[:2] + (1, shape[3]), dtype=torch.bfloat16)
+    assert FA.route(q, k, k.clone()) == route
+
+
+@pytest.mark.parametrize("p,n,route", [
+    (64, 128, "wgmma"), (16, 8, "wgmma"), (8, 16, "wgmma"), (24, 72, "wgmma"),
+    (12, 20, "mma_sync"),   # widths no multiple of 8: a row stride TMA cannot take
+    (64, 20, "mma_sync"), (12, 128, "mma_sync"),
+])
+def test_ssd_scan_widths(p, n, route):
+    x = torch.zeros(1, 8, 2, p, dtype=torch.bfloat16)
+    B = torch.zeros(1, 8, n, dtype=torch.bfloat16)
+    assert SS.route(x, B, B.clone()) == route
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -68,18 +159,18 @@ def test_cpu_tensors_launch_no_route(mod, dtype):
     before, routes = fn.launches, dict(fn.route_launches)
     out = fn(*_operands(mod, dtype))
     assert fn.launches == before and fn.route_launches == routes
-    assert set(fn.route_launches) == {"tensor_cores", "cuda_cores"}
+    assert set(fn.route_launches) == {"wgmma", "mma_sync", "cuda_cores"}
     assert (out if mod is FA else out[0]).dtype == dtype
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
 def test_launch_counts_its_route(mod, dtype, monkeypatch):
-    """``_launch`` hands the C entry the dtype's code and counts one launch,
-    on the dtype's route only (a stand-in entry point on CPU tensors)."""
+    """``_launch`` hands the C entry the route's code and counts one launch,
+    on that route only (a stand-in entry point on CPU tensors)."""
     fn = _wrapper(mod)
     monkeypatch.setattr(fn, "launches", 0)
-    monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES.values(), 0))
+    monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES, 0))
     seen = []
 
     def entry(*args):
@@ -87,27 +178,66 @@ def test_launch_counts_its_route(mod, dtype, monkeypatch):
         return 0
 
     ops = _operands(mod, dtype)
-    if mod is FA:
-        mod._launch(entry, *ops, True, 0, None)
-        code = seen[0][4]
-    else:
-        mod._launch(entry, *ops, 8, None)
-        code = seen[0][6]
-    assert code == mod._DTYPES[dtype]
-    want = dict.fromkeys(mod.ROUTES.values(), 0)
-    want[mod.ROUTES[dtype]] = 1
+    _launch(mod, entry, ops)
+    code = seen[0][4] if mod is FA else seen[0][7]
+    route = _route(mod, ops)
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert code == mod.ROUTE_CODES[route]
+    want = dict.fromkeys(mod.ROUTES, 0)
+    want[route] = 1
     assert fn.launches == 1 and fn.route_launches == want
+
+
+@pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
+def test_asked_route_must_take_the_operands(mod, monkeypatch):
+    """A route asked for (to time the mma_sync kernel beside the wgmma one)
+    launches with its own code when it takes the operands; wgmma on an
+    unaligned view, cuda_cores on bf16 or a bf16 route on float32 raise
+    before any launch."""
+    fn = _wrapper(mod)
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES, 0))
+    seen = []
+    entry = lambda *args: seen.append(args) or 0
+    ops = _operands(mod, torch.bfloat16)
+    _launch(mod, entry, ops, "mma_sync")
+    assert (seen[0][4] if mod is FA else seen[0][7]) == mod.ROUTE_CODES["mma_sync"]
+    assert fn.route_launches["mma_sync"] == 1
+    bad = [(tuple(_unaligned(t) if t.dtype == torch.bfloat16 else t for t in ops), "wgmma"),
+           (ops, "cuda_cores"), (_operands(mod, torch.float32), "mma_sync"),
+           (_operands(mod, torch.float32), "wgmma"), (ops, "tensor_cores")]
+    for operands, route in bad:
+        with pytest.raises(ValueError, match="does not take"):
+            _launch(mod, entry, operands, route)
+    assert len(seen) == 1 and fn.launches == 1
+
+
+@pytest.mark.parametrize("s,chunk,tiles", [(8, 8, 0), (40, 16, 1), (300, 256, 4), (600, 100, 2)])
+def test_ssd_scan_scratch_only_across_chunks(s, chunk, tiles, monkeypatch):
+    """The wgmma kernel gets float32 scratch for a private state per
+    query-tile block (P x N each) only when S spans more than one chunk; a
+    null pointer otherwise, and on the other routes."""
+    monkeypatch.setattr(SS.ssd_scan, "launches", 0)
+    monkeypatch.setattr(SS.ssd_scan, "route_launches", dict.fromkeys(SS.ROUTES, 0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, s, 3, 16), generator=g).bfloat16()
+    a = torch.rand((2, s, 3), generator=g)
+    B = torch.randn((2, s, 8), generator=g).bfloat16()
+    seen = []
+    entry = lambda *args: seen.append(args) or 0
+    for route in ("wgmma", "mma_sync"):
+        SS._launch(entry, x, a, B, B.clone(), chunk, None, route)
+    want = 2 * 3 * tiles * 16 * 8
+    assert SS._scratch_floats(2, s, 3, 16, 8, chunk) == want
+    assert (seen[0][6] != 0) == (want > 0) and seen[1][6] == 0
 
 
 @pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
 def test_failed_launch_counts_nothing(mod, monkeypatch):
     fn = _wrapper(mod)
     monkeypatch.setattr(fn, "launches", 0)
-    monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES.values(), 0))
+    monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES, 0))
     ops = _operands(mod, torch.bfloat16)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        if mod is FA:
-            mod._launch(lambda *a: 1, *ops, True, 0, None)
-        else:
-            mod._launch(lambda *a: 1, *ops, 8, None)
+        _launch(mod, lambda *a: 1, ops)
     assert fn.launches == 0 and set(fn.route_launches.values()) == {0}
