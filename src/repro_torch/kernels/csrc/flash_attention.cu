@@ -13,9 +13,12 @@
 // What bounds it on the card: at the shapes the one-shot path gives it
 // (gemma-2b: B 4, S 256, H 8, KV 1, D 256, bf16) the function moves 9.4 MB
 // and does 2.1 GFLOP, so its least time is the bytes (2.8 us at 3.35 TB/s);
-// at paligemma's S 512 the operations (8.7 us at 989 TFLOP/s).
+// at paligemma's S 512 the operations (8.7 us at 989 TFLOP/s). In float32
+// (the float32 one-shot paths, cifar10-scorenet) the operations: 2.1 GFLOP
+// at 165 TFLOP/s (the tensor cores' TF32 rate over the three products of
+// 3xTF32) is 13 us at gemma's shape.
 //
-// Three kernels, one per route (the `route` argument of flash_attention_fwd;
+// Four kernels, one per route (the `route` argument of flash_attention_fwd;
 // flash_attention.py's route() picks it from the operands):
 //
 // * wgmma (bfloat16 that TMA can describe: base pointers 16-byte aligned, D
@@ -73,10 +76,46 @@
 //   FlashAttention-2 does (about 1e-4 on outputs of about 0.1 at N(0, 1)
 //   inputs, against the bf16 check's 2e-2).
 //
-// * cuda_cores (float32) -> flash_fwd_kernel, on the CUDA cores. Tensor
-//   cores in bf16 or TF32 cannot meet the float32 check (2e-5), so float32
-//   operands keep this kernel: one block of 256 threads (a 16 x 16 grid) owns BQ = 32
-//   query rows and walks key tiles of BK = 32 rows. Per tile:
+// * tf32x3 (float32 whose base pointers are 16-byte aligned) ->
+//   flash_fwd_tf32x3_kernel<D, KS>, float32 on the tensor cores. One TF32
+//   product keeps 10 bits of each significand and misses the float32 check
+//   (2e-5) by far; three meet it: each float32 value x is split in registers
+//   into hi = tf32(x) (rounded to nearest) and lo = tf32(x - hi), and a b is
+//   taken as a_lo b_hi + a_hi b_lo + a_hi b_hi (mma.sync m16n8k8 .tf32,
+//   float32 accumulators; a_lo b_lo, about 2^-22 of a b, dropped). The
+//   rounding is an integer add and mask (ptx.cuh), the value of
+//   cvt.rna.tf32.f32, which issues at a fraction of the integer rate. A
+//   block's 64 rows are 4 warps of 16 with the heads of a KV head packed
+//   into them as in the wgmma kernel (G heads at each of 64 / G positions),
+//   so one K/V tile serves all of them. Q, K and V stay float32 in shared
+//   memory, each value once, rows padded to D + 4 floats so that the 8 rows
+//   of every fragment load fall in distinct banks; K and V tiles of 32 keys
+//   (64 at D <= 64, or with KS 2 at D 128) are double-buffered by 16-byte
+//   cp.async copies, the next loading while this one multiplies. Per tile
+//   and warp:
+//     S = Q K^T   Q's and K's fragments split as they are loaded (no
+//                 operand transposed: K's rows are the product's columns)
+//     masks (skipped when every key of the warp's share of the tile is
+//     visible to every row of the block), scale, online softmax in float32
+//     (-1e30 masks; __expf, ex2.approx of x log2 e, within about |x| 2^-24
+//     of expf), quad shuffles, as the other kernels
+//     O += P V    P straight from the S accumulators, split in registers:
+//                 an accumulator holds columns 2t and 2t+1 where the m16n8k8
+//                 A fragment wants k = t and t + 4, so key 2t is taken as
+//                 k = t and 2t + 1 as k = t + 4, and V's rows are read in
+//                 that order (ptx.cuh)
+//   each product's three terms issued across 4 or 8 independent
+//   accumulators (mma_3xtf32). Where D <= 128 and the grid of 64-row blocks
+//   gives fewer than two blocks an SM (whisper's 96 blocks, cifar10-
+//   scorenet's 64), a block is 8 warps (KS 2): the second 4 take the second
+//   half of every key tile for the same rows, and the two halves' softmax
+//   states are merged through shared memory at the end. Output acc /
+//   max(l, 1e-30), as float2 stores. What holds it back and its times:
+//   PERF.md, tools/kernel_stages.py.
+// * cuda_cores (any other float32: a view whose base is not 16-byte
+//   aligned) -> flash_fwd_kernel, the first port, on the CUDA cores: one
+//   block of 256 threads (a 16 x 16 grid) owns BQ = 32 query rows and walks
+//   key tiles of BK = 32 rows. Per tile:
 //     S = Q K^T * scale      each thread 2 x 2 of the 32 x 32 tile, over D
 //     mask, row max and row sum by half-warp shuffles (a row's 16 threads
 //     are the lanes of one half-warp), online rescale of the accumulator
@@ -717,6 +756,255 @@ __global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma
 }
 
 // ---------------------------------------------------------------------------
+// float32 on the tensor cores: the 3xTF32 kernel
+
+// KS: the block's 64 rows (4 groups of 16, a warp each) once (KS 1, 128
+// threads) or twice (KS 2, 256 threads), warp group k taking the k-th half
+// of every key tile and the halves' softmax states merged at the end
+template <int D, int KS>
+struct Tf32Tile {
+    static constexpr int THREADS = 128 * KS;
+    // key rows a stage, and a warp's share of them: 32 at D 256 (shared
+    // memory) and at D 128 with one warp group (two blocks an SM), else 64
+    // (32 a warp with two; the launcher takes two only at D <= 128)
+    static constexpr int BK = D == 256 || (D == 128 && KS == 1) ? 32 : 64;
+    static constexpr int KW = BK / KS;
+    static constexpr int LD = D + 4;                 // row stride in floats
+    // n8 tiles of O a P V pass: 4 at D 256 (registers) and D 32 (all of them)
+    static constexpr int NBG = D == 256 || D == 32 ? 4 : 8;
+    static constexpr size_t SMEM = sizeof(float) * LD * (MQ + 4 * BK);   // Q, 2 x (K, V)
+};
+
+// rows of a float32 (positions, heads, D) operand into a tile of row stride
+// D + 4 by 16-byte cp.async copies, all `threads` of the block: tile row r is
+// position p0 + r / G (stride `stride` between positions) of the G heads from
+// src on (r % G); positions at or past lim read as zeros
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride,
+                                              int p0, int G, int rows, int lim, int threads) {
+    constexpr int LD = D + 4, CH = D / 4;   // 16-byte chunks a row
+    for (int c = threadIdx.x; c < rows * CH; c += threads) {
+        const int r = c / CH, col = (c % CH) * 4;
+        const int pos = p0 + r / G;
+        const bool in = pos < lim;
+        cp_async_16(dst + r * LD + col, in ? src + pos * stride + (r % G) * D + col : src, in);
+    }
+}
+
+template <int D, int KS>
+__global__ void __launch_bounds__(Tf32Tile<D, KS>::THREADS) flash_fwd_tf32x3_kernel(
+        const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+        float* __restrict__ out, int H, int KV, int sq, int sk, int causal, int window,
+        float scale, int G) {
+    using T = Tf32Tile<D, KS>;
+    constexpr int TK = T::BK, KW = T::KW, LD = T::LD, NB = KW / 8;
+    extern __shared__ __align__(16) float smem_f[];
+    float* qs = smem_f;              // MQ x LD
+    float* ks = qs + MQ * LD;        // 2 stages x TK x LD
+    float* vs = ks + 2 * TK * LD;    // 2 stages x TK x LD
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rg = warp & 3, kh = warp >> 2;   // row group, key half
+    // the block's 64 rows: G heads (sharing one KV head) at each of 64 / G
+    // positions, row r = position p0 + r / G of head h0 + r % G
+    const int npos = MQ / G;
+    const int p0 = blockIdx.x * npos, p_last = min(p0 + npos, sq) - 1;
+    const int groups = H / G;
+    const int b = blockIdx.y / groups, h0 = (blockIdx.y % groups) * G;
+    const int kvh = h0 / (H / KV);
+    const int q_off = sk - sq;
+    const long long q_stride = (long long)H * D, kv_stride = (long long)KV * D;
+    const float* qb = q + ((long long)b * sq * H + h0) * D;
+    const float* kb = k + ((long long)b * sk * KV + kvh) * D;
+    const float* vb = v + ((long long)b * sk * KV + kvh) * D;
+
+    // key tiles the block's queries can see (positions q_off + p0 .. q_off + p_last)
+    int k_lo = 0, k_hi = sk;
+    if (causal) k_hi = min(sk, q_off + p_last + 1);
+    if (window) k_lo = max(0, q_off + p0 - window + 1);
+    const int t_begin = k_lo / TK, t_end = (k_hi + TK - 1) / TK;
+
+    if (t_begin < t_end) {
+        load_rows_f32<D>(qs, qb, q_stride, p0, G, MQ, sq, T::THREADS);
+        load_rows_f32<D>(ks, kb, kv_stride, t_begin * TK, 1, TK, sk, T::THREADS);
+        load_rows_f32<D>(vs, vb, kv_stride, t_begin * TK, 1, TK, sk, T::THREADS);
+        cp_async_commit();
+    }
+
+    // this thread's two rows: r0 = 16 rg + g and r0 + 8 of the block's 64
+    const int r0 = 16 * rg + g;
+    const int qpos[2] = {q_off + p0 + r0 / G, q_off + p0 + (r0 + 8) / G};
+    auto visible = [&](int kpos, int qp) {
+        return kpos < sk && (!causal || kpos <= qp) && (!window || kpos > qp - window);
+    };
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+    for (int kt = t_begin; kt < t_end; ++kt) {
+        const int stage = (kt - t_begin) & 1;
+        if (kt + 1 < t_end) {   // the next tile loads while this one multiplies
+            const int nxt = (stage ^ 1) * TK * LD;
+            load_rows_f32<D>(ks + nxt, kb, kv_stride, (kt + 1) * TK, 1, TK, sk, T::THREADS);
+            load_rows_f32<D>(vs + nxt, vb, kv_stride, (kt + 1) * TK, 1, TK, sk, T::THREADS);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        // this warp's KW keys of the tile: k0 ..
+        const float* kst = ks + stage * TK * LD + kh * KW * LD;
+        const float* vst = vs + stage * TK * LD + kh * KW * LD;
+        const int k0 = kt * TK + kh * KW;
+
+        // S = Q K^T: 16 rows x KW keys a warp, k-steps of 8 along D; Q's and
+        // K's fragments split into TF32 hi and lo in registers
+        float s[NB][4];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 4
+        for (int kk = 0; kk < D / 8; ++kk) {
+            const float* qa = qs + r0 * LD + 8 * kk + t4;
+            uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+            split_tf32(qa[0], ah[0], al[0]);
+            split_tf32(qa[8 * LD], ah[1], al[1]);
+            split_tf32(qa[4], ah[2], al[2]);
+            split_tf32(qa[8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+            for (int jn = 0; jn < NB; ++jn) {
+                const float* kr = kst + (8 * jn + g) * LD + 8 * kk + t4;   // B[k][n] = K[n][k]
+                split_tf32(kr[0], bh[jn][0], bl[jn][0]);
+                split_tf32(kr[4], bh[jn][1], bl[jn][1]);
+            }
+            mma_3xtf32<NB>(s, ah, al, bh, bl);
+        }
+
+        // masks (skipped when every key of the warp's share is visible to
+        // every row of the block), scale, online softmax: element e of tile j
+        // is row r0 + 8 (e / 2), key k0 + 8 j + 2 t4 + e % 2; a row's 4
+        // threads are a quad
+        const bool whole = k0 + KW <= sk && (!causal || k0 + KW - 1 <= q_off + p0)
+                           && (!window || k0 > q_off + p_last - window);
+        const int key0 = k0 + 2 * t4;
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                float& x = s[j][e];
+                x = whole || visible(key0 + 8 * j + (e & 1), qpos[r]) ? x * scale : NEG_INF;
+                mx[r] = fmaxf(mx[r], x);
+            }
+        float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            mx[r] = fmaxf(m[r], mx[r]);                 // the new running max
+            alpha[r] = __expf(m[r] - mx[r]);
+            m[r] = mx[r];
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                float& x = s[j][e];
+                x = whole || visible(key0 + 8 * j + (e & 1), qpos[r]) ? __expf(x - m[r]) : 0.f;
+                psum[r] += x;
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+            l[r] = alpha[r] * l[r] + psum[r];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+            o[j][0] *= alpha[0];
+            o[j][1] *= alpha[0];
+            o[j][2] *= alpha[1];
+            o[j][3] *= alpha[1];
+        }
+
+        // O += P V: P's accumulators of keys 8 kk .. 8 kk + 7 are the A
+        // fragment with key 2 t4 at k = t4 and key 2 t4 + 1 at k = t4 + 4, so
+        // V's rows are read in that order (b0 from row 2 t4, b1 from 2 t4 + 1);
+        // O's n8 tiles NBG at a time
+#pragma unroll
+        for (int kk = 0; kk < NB; ++kk) {
+            uint32_t ph[4], pl[4];
+            split_tf32(s[kk][0], ph[0], pl[0]);
+            split_tf32(s[kk][2], ph[1], pl[1]);
+            split_tf32(s[kk][1], ph[2], pl[2]);
+            split_tf32(s[kk][3], ph[3], pl[3]);
+            const float* vr = vst + (8 * kk + 2 * t4) * LD + g;
+#pragma unroll
+            for (int nb0 = 0; nb0 < D / 8; nb0 += T::NBG) {
+                uint32_t bh[T::NBG][2], bl[T::NBG][2];
+#pragma unroll
+                for (int nb = 0; nb < T::NBG; ++nb) {
+                    split_tf32(vr[8 * (nb0 + nb)], bh[nb][0], bl[nb][0]);
+                    split_tf32(vr[LD + 8 * (nb0 + nb)], bh[nb][1], bl[nb][1]);
+                }
+                mma_3xtf32<T::NBG>(o + nb0, ph, pl, bh, bl);
+            }
+        }
+        __syncthreads();   // every warp is done with this stage before it refills
+    }
+
+    if constexpr (KS == 2) {
+        // the two key halves' softmax states, merged as the online softmax
+        // merges two tiles: the second half's through the stages (every copy
+        // has landed and been read), merged by the first half's warps
+        float* xo = ks;                              // [row group][D / 2 values][32 lanes]
+        float* xm = xo + 4 * (D / 2) * 32;           // [row group][4][32 lanes]: m, l
+        const int slot = rg * 32 + lane;
+        if (kh == 1) {
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) xo[(rg * (D / 2) + 4 * j + e) * 32 + lane] = o[j][e];
+            xm[slot * 4 + 0] = m[0];
+            xm[slot * 4 + 1] = m[1];
+            xm[slot * 4 + 2] = l[0];
+            xm[slot * 4 + 3] = l[1];
+        }
+        __syncthreads();
+        if (kh == 1) return;
+        float a0[2], a1[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float m1 = xm[slot * 4 + r], mn = fmaxf(m[r], m1);
+            a0[r] = __expf(m[r] - mn);
+            a1[r] = __expf(m1 - mn);
+            l[r] = a0[r] * l[r] + a1[r] * xm[slot * 4 + 2 + r];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                o[j][e] = a0[e >> 1] * o[j][e] + a1[e >> 1] * xo[(rg * (D / 2) + 4 * j + e) * 32 + lane];
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r, pos = p0 + row / G;
+        if (pos >= sq) continue;
+        float* orow = out + (((long long)b * sq + pos) * H + h0 + row % G) * D;
+        const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) =
+                make_float2(o[j][2 * r] / den, o[j][2 * r + 1] / den);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 template <int D>
@@ -824,11 +1112,65 @@ cudaError_t launch_wgmma_dim(int D, const void* q, const void* k, const void* v,
 #undef FA_WG
 }
 
+template <int D, int KS>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* out, int B, int sq,
+                          int sk, int H, int KV, int causal, int window, float scale, int G,
+                          cudaStream_t stream) {
+    using T = Tf32Tile<D, KS>;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tf32x3_kernel<D, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    if (err != cudaSuccess) return err;
+    const int npos = MQ / G;
+    const dim3 grid((sq + npos - 1) / npos, B * (H / G));
+    flash_fwd_tf32x3_kernel<D, KS><<<grid, T::THREADS, T::SMEM, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), H, KV, sq, sk, causal, window,
+        scale, G);
+    return cudaGetLastError();
+}
+
+// two warp groups splitting the key tiles (KS 2) where D <= 128 and the grid
+// of 64-row blocks gives fewer than two blocks an SM (whisper's 96 blocks,
+// cifar10-scorenet's 64); one elsewhere
+cudaError_t launch_tf32x3_dim(int D, const void* q, const void* k, const void* v, void* out,
+                              int B, int sq, int sk, int H, int KV, int causal, int window,
+                              float scale, cudaStream_t st) {
+    // every tile row starts on a 16-byte line (cp.async)
+    if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+          | reinterpret_cast<uintptr_t>(v)) & 15) != 0)
+        return cudaErrorInvalidValue;
+    // G heads sharing a KV head fill a block's 64 rows together: the
+    // largest power of two dividing H / KV, at most 64
+    const int n_rep = H / KV, G = min(n_rep & -n_rep, MQ);
+    int dev = 0, sms = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return err;
+    const long long blocks = (long long)((sq + MQ / G - 1) / (MQ / G)) * B * (H / G);
+    const bool split = D <= 128 && blocks < 2LL * sms;
+#define FA_T3(DIM)                                                                          \
+    return split ? launch_tf32x3<DIM, 2>(q, k, v, out, B, sq, sk, H, KV, causal, window,     \
+                                         scale, G, st)                                      \
+                 : launch_tf32x3<DIM, 1>(q, k, v, out, B, sq, sk, H, KV, causal, window,     \
+                                         scale, G, st)
+    switch (D) {
+        case 32: FA_T3(32);
+        case 64: FA_T3(64);
+        case 128: FA_T3(128);
+        case 256:
+            return launch_tf32x3<256, 1>(q, k, v, out, B, sq, sk, H, KV, causal, window, scale, G,
+                                         st);
+        default: return cudaErrorInvalidValue;
+    }
+#undef FA_T3
+}
+
 }  // namespace
 
-// route: 0 float32 (the CUDA-core kernel), 1 bfloat16 on mma.sync, 2
-// bfloat16 on wgmma. Returns cudaGetLastError() after the launch (0 on
-// success); the caller raises on anything else.
+// route: 0 float32 on the CUDA cores, 1 bfloat16 on mma.sync, 2 bfloat16 on
+// wgmma, 3 float32 on the tensor cores (3xTF32). Returns cudaGetLastError()
+// after the launch (0 on success); the caller raises on anything else.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int route, int B, int sq, int sk, int H, int KV, int D,
                                    int causal, int window, float scale, void* stream) {
@@ -837,6 +1179,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
         case 0: return launch_dim<false>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         case 1: return launch_dim<true>(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         case 2: return launch_wgmma_dim(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
+        case 3: return launch_tf32x3_dim(D, q, k, v, out, B, sq, sk, H, KV, causal, window, scale, st);
         default: return cudaErrorInvalidValue;
     }
 }

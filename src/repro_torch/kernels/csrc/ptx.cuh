@@ -1,10 +1,11 @@
 // The tensor-core kernels' inline PTX, one instruction per function, for
 // sm_90a: bf16 m16n8k16 products with float32 accumulation (mma.sync),
 // 8 x 8 b16 matrix loads from shared memory (ldmatrix), and 16-byte
-// asynchronous copies from device to shared memory (cp.async); then
-// Hopper's own (second part below): warpgroup products (wgmma), tensor
-// copies by the tensor memory accelerator (TMA) and shared-memory barriers
-// (mbarrier).
+// asynchronous copies from device to shared memory (cp.async); float32
+// products on the tensor cores as three TF32 products (mma.sync m16n8k8,
+// second part); then Hopper's own (third part): warpgroup products
+// (wgmma), tensor copies by the tensor memory accelerator (TMA) and
+// shared-memory barriers (mbarrier).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane = 4 g + t of a warp:
@@ -86,6 +87,64 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 __device__ __forceinline__ void split_bf16x2(float lo, float hi, uint32_t& big, uint32_t& small) {
     big = pack_bf16x2(lo, hi);
     small = pack_bf16x2(lo - bf16_lo(big), hi - bf16_hi(big));
+}
+
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores: 3xTF32
+//
+// Fragment layouts of mma.m16n8k8 with .tf32 operands (PTX ISA, "Matrix
+// Fragments for mma.m16n8k8"), one 32-bit value a register, lane = 4 g + t:
+//   A (16 x 8, row-major)  a0 = A[g][t]    a1 = A[g+8][t]   a2 = A[g][t+4]  a3 = A[g+8][t+4]
+//   B (8 x 8, k x n)       b0 = B[t][g]    b1 = B[t+4][g]
+//   C, D (16 x 8, float)   c0, c1 = C[g][2t, 2t+1]          c2, c3 = C[g+8][2t, 2t+1]
+// So an accumulator is not an A fragment as it is: its columns 2t and 2t+1
+// are what A wants at k = t and k = t + 4. Taking key 2t as k = t and key
+// 2t + 1 as k = t + 4 (a0 = c0, a1 = c2, a2 = c1, a3 = c3) makes it one, if
+// the B operand's rows are read in the same order (b0 from row 2t, b1 from
+// row 2t + 1): a sum over k does not care about the order of its terms.
+//
+// A TF32 value keeps 10 bits of the significand, so one product misses a
+// float32 check by orders of magnitude. The split x = hi + lo, hi = tf32(x)
+// (rounded to nearest), lo = tf32(x - hi), gives a b = a_hi b_hi + a_hi b_lo
+// + a_lo b_hi + (a_lo b_lo, dropped: about 2^-22 of a b), float32 sums.
+
+// x rounded to TF32 (nearest, ties away from zero), as its 32-bit pattern:
+// the value cvt.rna.tf32.f32 gives for every finite x, by an integer add and
+// mask (half a TF32 ulp added to the magnitude, the 13 low bits cleared),
+// which issue at the full rate where the conversion does not
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo, both TF32 (x - hi is exact in float32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b: m16n8k8, TF32 operands, float32 accumulator
+__device__ __forceinline__ void mma_tf32_1688(float d[4], const uint32_t a[4], uint32_t b0,
+                                              uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[j] += a b_j in 3xTF32 for NB n8 tiles j: each of the three products
+// (the two small terms first, then hi hi) across all NB tiles before the
+// next, so that a tile's three dependent products issue NB apart
+template <int NB>
+__device__ __forceinline__ void mma_3xtf32(float (*acc)[4], const uint32_t ah[4],
+                                           const uint32_t al[4], const uint32_t (*bh)[2],
+                                           const uint32_t (*bl)[2]) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) mma_tf32_1688(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) mma_tf32_1688(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) mma_tf32_1688(acc[j], ah, bh[j][0], bh[j][1]);
 }
 
 // ---------------------------------------------------------------------------

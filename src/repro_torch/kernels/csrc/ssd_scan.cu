@@ -16,11 +16,13 @@
 //
 // What bounds it on the card: at mamba2-2.7b's shape (Bb 4, S 256, H 80,
 // P 64, N 128, chunk 256, bf16) the function moves 32.3 MB and needs
-// 6.7 GFLOP (the lower triangle of each chunk's L x L products, and the
-// two L x P x N products), so its least time is the bytes (9.6 us at
-// 3.35 TB/s).
+// 4.1 GFLOP (the lower triangle of each chunk's L x L products, C B^T once
+// per batch as B and C carry no head axis, and the two L x P x N products
+// per head), so its least time is the bytes (9.6 us at 3.35 TB/s); in
+// float32 the operations (24.6 us at 165 TFLOP/s, the tensor cores' TF32
+// rate over the three products of 3xTF32).
 //
-// Three kernels, one per route (the `route` argument of ssd_scan_fwd;
+// Four kernels, one per route (the `route` argument of ssd_scan_fwd;
 // ssd_scan.py's route() picks it from the operands):
 //
 // * wgmma (bfloat16 that TMA can describe: base pointers 16-byte aligned, P
@@ -83,12 +85,46 @@
 //   shape run in one wave; a sequence of more than one chunk adds the
 //   float32 state (33 KB) in shared memory, two blocks an SM.
 //
-// * cuda_cores (float32) -> ssd_scan_kernel, on the CUDA cores. Tensor
-//   cores in bf16 or TF32 cannot meet the float32 check (2e-4), so float32
-//   operands keep this kernel: one block of 256 threads (16 x 16) per (batch, head); the state
-//   stays in shared memory. A chunk of 256 steps would need a 256 x 256
-//   float32 score matrix (256 KB, more than a block's 227 KB), so each chunk
-//   is cut into tiles of 64 steps:
+// * tf32x3 (float32 that the bf16 route's conditions hold for: base
+//   pointers 16-byte aligned, P and N multiples of 8) ->
+//   ssd_scan_tf32x3_kernel<HG>, float32 on the tensor cores in 3xTF32 (one
+//   TF32 product misses the float32 check, 2e-4, by far; three meet it):
+//   every product on mma.sync m16n8k8 .tf32 with each float32 factor split
+//   in registers into hi = tf32(x) and lo = tf32(x - hi) (an integer add
+//   and mask, the value of cvt.rna.tf32.f32), taken as lo hi + hi lo + hi
+//   hi with float32 accumulators, the three terms issued across 8
+//   independent accumulators. The plain version's numerics otherwise: the
+//   1e-37 clamp, exp(cum_t - cum_u) never factored, padding with a = 1, the
+//   float32 state carried from chunk to chunk (in the state output). A
+//   block of 8 warps owns HG = 2 heads of a batch (1 where H is odd) and
+//   computes each C_t B_u^T once for both. Tiles are float32 in shared
+//   memory at the largest widths (P 64, N 128; the columns past P or N
+//   zeros, so every loop has a fixed count), rows padded by 4 floats so
+//   that the 8 rows of every fragment load fall in distinct banks; key
+//   tiles of 64 steps (B and x of each head) are double-buffered by 16-byte
+//   cp.async copies. Per chunk: the prefix of log a per head (a warp scan);
+//   y in passes of 128 query rows (C of the pass in shared memory, 16 rows a
+//   warp), per key tile at or before a warp's rows:
+//     1. scores C_t B_u^T over N (only the n8 key tiles at or before the
+//        warp's last row on the diagonal);
+//     2. per head, W = scores o exp(cum_t - cum_u) on u <= t, straight from
+//        the accumulators as the A fragment (key 2t at k = t, 2t + 1 at
+//        k = t + 4, ptx.cuh), x's rows read in that order;
+//     3. y += W x_u;
+//   and the inter-chunk term exp(cum_t) (C_t h^T) on every chunk but the
+//   first. Then the state h = exp(cum_L) h + (x o exp(cum_L - cum))^T B,
+//   the decayed x as the A fragment, units of (head, 16 rows of P, 64
+//   columns of N) over the warps. A sequence of one chunk (the one-shot
+//   path's) is cut into a block for each pass of y and one for the state,
+//   which spreads mamba2's 160 head pairs over 480 blocks on the 132 SMs;
+//   several chunks run whole in one block. What holds it back and its
+//   times: PERF.md, tools/kernel_stages.py.
+// * cuda_cores (any other float32: unaligned views, odd widths) ->
+//   ssd_scan_kernel, the first port, on the CUDA cores: one block of 256
+//   threads (16 x 16) per (batch, head); the state stays in shared memory.
+//   A chunk of 256 steps would need a 256 x 256 float32 score matrix (256
+//   KB, more than a block's 227 KB), so each chunk is cut into tiles of 64
+//   steps:
 //   1. the chunk's log a and its full inclusive prefix (a block scan in
 //      shared memory) before any tile reads it, and exp(cum), exp(cum_L -
 //      cum) per step;
@@ -1029,6 +1065,341 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// float32 on the tensor cores: the 3xTF32 kernel
+
+constexpr int T3_THREADS = 256;   // 8 warps
+constexpr int T3_ROWS = 128;      // query rows a pass, 16 a warp
+constexpr int T3_STAGES = 2;      // key tiles in flight
+// float32 tiles at the largest widths, the columns past P or N zeros: the
+// row strides (MAXN + 4, MAXP + 4) put the 8 rows of every fragment load
+// in distinct banks
+constexpr int T3_LDN = MAXN + 4, T3_LDX = MAXP + 4;
+
+// floats of dynamic shared memory: C rows of a pass, the ring (B of a key
+// tile and x of each head), cum / exp(cum) / exp(cum_L - cum) of each head
+template <int HG>
+constexpr size_t t3_smem_floats() {
+    return (size_t)T3_ROWS * T3_LDN + (size_t)T3_STAGES * TILE * (T3_LDN + HG * T3_LDX)
+           + 3 * (size_t)HG * MAXL;
+}
+
+// rows [row0, row0 + rows) of the chunk at c0 of a float32 operand (`cols`
+// values a step, a multiple of 4; `stride` between steps) into a tile of row
+// stride ld by 16-byte cp.async copies; rows past the chunk or past S are zeros
+__device__ __forceinline__ void load_tile_f32(float* dst, int ld, const float* src,
+                                              long long stride, int cols, int c0, int row0,
+                                              int rows, int L, int S) {
+    const int ch = cols / 4;
+    for (int c = threadIdx.x; c < rows * ch; c += T3_THREADS) {
+        const int r = c / ch, col = (c % ch) * 4;
+        const int s = c0 + row0 + r;
+        const bool in = row0 + r < L && s < S;
+        cp_async_16(dst + r * ld + col, in ? src + s * stride + col : src, in);
+    }
+}
+
+// the A fragment of 16 rows of a row-major float32 tile (row stride ld) at
+// k-step kk (columns 8 kk ..), split into TF32 hi and lo
+__device__ __forceinline__ void a_frag_tf32(const float* tile, int ld, int kk, int g, int t4,
+                                            uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const float* p = tile + g * ld + 8 * kk + t4;
+    split_tf32(p[0], ah[0], al[0]);
+    split_tf32(p[8 * ld], ah[1], al[1]);
+    split_tf32(p[4], ah[2], al[2]);
+    split_tf32(p[8 * ld + 4], ah[3], al[3]);
+}
+
+// scores C_t B_u^T of a warp's 16 rows against NB n8 tiles of keys, over N
+// (k-steps of 8; the columns past N are zeros)
+template <int NB>
+__device__ __forceinline__ void scores_tf32x3(float (&sc)[8][4], const float* cw, const float* bs,
+                                              int g, int t4) {
+#pragma unroll 2
+    for (int kk = 0; kk < MAXN / 8; ++kk) {
+        uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+        a_frag_tf32(cw, T3_LDN, kk, g, t4, ah, al);
+#pragma unroll
+        for (int jn = 0; jn < NB; ++jn) {
+            const float* br = bs + (8 * jn + g) * T3_LDN + 8 * kk + t4;   // B[k][n] = Bm[n][k]
+            split_tf32(br[0], bh[jn][0], bl[jn][0]);
+            split_tf32(br[4], bh[jn][1], bl[jn][1]);
+        }
+        mma_3xtf32<NB>(sc, ah, al, bh, bl);
+    }
+}
+
+template <int HG>
+__global__ void __launch_bounds__(T3_THREADS, 1) ssd_scan_tf32x3_kernel(
+        const float* __restrict__ x, const float* __restrict__ a, const float* __restrict__ Bm,
+        const float* __restrict__ Cm, float* __restrict__ y, float* state, int S, int H, int P,
+        int N, int L) {
+    extern __shared__ __align__(16) float smem_f[];
+    __shared__ float warp_sum[T3_THREADS / 32];
+    constexpr int LDN = T3_LDN, LDX = T3_LDX, STAGE = TILE * (LDN + HG * LDX);
+    float* cq = smem_f;                                 // T3_ROWS x LDN: C rows of the pass
+    float* ring = cq + T3_ROWS * LDN;                   // stages: B (TILE x LDN), x of each head (TILE x LDX)
+    float* cum = ring + T3_STAGES * STAGE;              // HG x MAXL
+    float* ein = cum + HG * MAXL;                       // exp(cum_t)
+    float* eout = ein + HG * MAXL;                      // exp(cum_L - cum_u), 0 past L
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int groups = H / HG;
+    const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * HG;
+    const long long x_stride = (long long)H * P;       // between steps of x and y
+    const float* xb = x + ((long long)b * S * H + h0) * P;   // head h0 + j at + j P
+    float* yb = y + ((long long)b * S * H + h0) * P;
+    const float* Bb = Bm + (long long)b * S * N;
+    const float* Cb = Cm + (long long)b * S * N;
+    // the state of head h0 + j (P x N) at + j P N: the previous chunk's h
+    // while a chunk's y is computed, the final state at the end
+    float* hb = state + ((long long)b * H + h0) * P * N;
+    const int n_chunks = (S + L - 1) / L, n_kt = (L + TILE - 1) / TILE;
+    // a sequence of one chunk is cut into blocks (gridDim.y > 1): block y 0
+    // takes y's last pass of 128 rows (the one with the most key tiles), y 1
+    // the state, y 2 .. the other passes from the last down; each computes
+    // the chunk's cum itself. Several chunks run whole in one block (y needs
+    // the previous chunk's state)
+    const int n_pass = (L + T3_ROWS - 1) / T3_ROWS;
+    const bool do_state = gridDim.y == 1 || blockIdx.y == 1;
+    const bool do_y = gridDim.y == 1 || blockIdx.y != 1;
+    const int only_pass = gridDim.y == 1 ? -1 : blockIdx.y == 0 ? n_pass - 1 : n_pass - blockIdx.y;
+
+    // columns past N / P stay zero for the whole run: the loads write only
+    // columns < N / P, and zero columns add nothing to any product
+    for (int e = tid; e < T3_ROWS * LDN + T3_STAGES * STAGE; e += T3_THREADS) smem_f[e] = 0.f;
+    __syncthreads();
+
+    // key tile ut of the chunk at c0 (B, and x of every head) into stage st
+    auto load_keys = [&](int c0, int ut, int st) {
+        float* bs = ring + st * STAGE;
+        load_tile_f32(bs, LDN, Bb, N, N, c0, ut * TILE, TILE, L, S);
+#pragma unroll
+        for (int j = 0; j < HG; ++j)
+            load_tile_f32(bs + TILE * LDN + j * TILE * LDX, LDX, xb + j * P, x_stride, P, c0,
+                          ut * TILE, TILE, L, S);
+    };
+    // the next key tile of a walk over tiles 0 .. n - 1 loads while this one
+    // multiplies (tile 0 was committed before the walk)
+    auto next_keys = [&](int c0, int ut, int n) {
+        if (ut + 1 < n) {
+            load_keys(c0, ut + 1, (ut + 1) & 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+    };
+
+    for (int c = 0; c < n_chunks; ++c) {
+        const int c0 = c * L;
+        // 1. per head, the chunk's inclusive prefix of log(max(a, 1e-37)), one
+        //    step a thread; over all MAXL entries, so that steps past the chunk
+        //    hold cum_L. Then exp(cum) and exp(cum_L - cum)
+        __syncthreads();   // the previous chunk's readers of cum, ein, eout are done
+        for (int j = 0; j < HG; ++j) {
+            float v = 0.f;
+            if (tid < L && c0 + tid < S)
+                v = logf(fmaxf(a[((long long)b * S + c0 + tid) * H + h0 + j], 1e-37f));
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1) {
+                const float up = __shfl_up_sync(0xffffffffu, v, off);
+                if (lane >= off) v += up;
+            }
+            if (lane == 31) warp_sum[warp] = v;
+            __syncthreads();
+            for (int w = 0; w < warp; ++w) v += warp_sum[w];
+            cum[j * MAXL + tid] = v;
+            __syncthreads();   // warp_sum is read before the next head rewrites it
+        }
+        for (int i = tid; i < HG * MAXL; i += T3_THREADS) {
+            const float c_last = cum[(i / MAXL) * MAXL + L - 1];
+            ein[i] = expf(cum[i]);
+            eout[i] = i % MAXL < L ? expf(c_last - cum[i]) : 0.f;
+        }
+        __syncthreads();
+
+        // 2. y, a pass of 128 query rows at a time, 16 a warp
+        for (int t0 = 0; do_y && t0 < L; t0 += T3_ROWS) {
+            if (only_pass >= 0 && t0 != only_pass * T3_ROWS) continue;
+            const int tw = t0 + 16 * warp;                     // the warp's first row in the chunk
+            const int tr[2] = {tw + g, tw + g + 8};            // this thread's rows
+            const float* cw = cq + 16 * warp * LDN;            // the warp's C rows
+            const int kt_end = (min(L, t0 + T3_ROWS) + TILE - 1) / TILE;   // key tiles of the pass
+            const int w_end = tw < L ? min(L - 1, tw + 15) / TILE + 1 : 0;  // and of this warp
+            load_tile_f32(cq, LDN, Cb, N, N, c0, t0, T3_ROWS, L, S);
+            load_keys(c0, 0, 0);
+            cp_async_commit();
+            float acc[HG][8][4];
+#pragma unroll
+            for (int j = 0; j < HG; ++j)
+#pragma unroll
+                for (int jp = 0; jp < 8; ++jp)
+                    acc[j][jp][0] = acc[j][jp][1] = acc[j][jp][2] = acc[j][jp][3] = 0.f;
+
+            for (int ut = 0; ut < kt_end; ++ut) {
+                next_keys(c0, ut, kt_end);
+                const float* bs = ring + (ut & 1) * STAGE;
+                const float* xs = bs + TILE * LDN;
+
+                if (ut == 0 && c > 0 && tw < L) {
+                    // inter-chunk: exp(cum_t) (C_t h^T), h the previous chunk's
+                    // state (B[k][n] = h[p = n][k], zeros past P or N)
+                    for (int kk = 0; kk < MAXN / 8; ++kk) {
+                        uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+                        a_frag_tf32(cw, LDN, kk, g, t4, ah, al);
+#pragma unroll
+                        for (int j = 0; j < HG; ++j) {
+#pragma unroll
+                            for (int jp = 0; jp < 8; ++jp) {
+                                const int p = 8 * jp + g, n = 8 * kk + t4;
+                                const float* hr = hb + (long long)j * P * N + p * N + n;
+                                split_tf32(p < P && n < N ? hr[0] : 0.f, bh[jp][0], bl[jp][0]);
+                                split_tf32(p < P && n + 4 < N ? hr[4] : 0.f, bh[jp][1], bl[jp][1]);
+                            }
+                            mma_3xtf32<8>(acc[j], ah, al, bh, bl);
+                        }
+                    }
+#pragma unroll
+                    for (int j = 0; j < HG; ++j) {
+                        const float e0 = ein[j * MAXL + tr[0]], e1 = ein[j * MAXL + tr[1]];
+#pragma unroll
+                        for (int jp = 0; jp < 8; ++jp) {
+                            acc[j][jp][0] *= e0;
+                            acc[j][jp][1] *= e0;
+                            acc[j][jp][2] *= e1;
+                            acc[j][jp][3] *= e1;
+                        }
+                    }
+                }
+
+                if (ut < w_end) {
+                    // the n8 key tiles with a key at or before the warp's last
+                    // row: all 8 below the diagonal, 2, 4, 6 or 8 on it
+                    const int nkg = min(8, (tw + 15 - ut * TILE) / 8 + 1);
+                    // scores C_t B_u^T over N, once for every head of the block
+                    float sc[8][4];
+#pragma unroll
+                    for (int jn = 0; jn < 8; ++jn) sc[jn][0] = sc[jn][1] = sc[jn][2] = sc[jn][3] = 0.f;
+                    if (nkg > 4) scores_tf32x3<8>(sc, cw, bs, g, t4);
+                    else scores_tf32x3<4>(sc, cw, bs, g, t4);
+                    // per head: y += W x_u, W = scores o exp(cum_t - cum_u) on
+                    // u <= t (__expf: ex2.approx of x log2 e, its error about
+                    // |x| 2^-24, small where the weight is not). The accumulators of keys 8 kg .. 8 kg + 7 are the A
+                    // fragment with key 2 t4 at k = t4 and 2 t4 + 1 at k = t4 + 4,
+                    // so x's rows are read in that order
+#pragma unroll
+                    for (int j = 0; j < HG; ++j) {
+                        const float* cj = cum + j * MAXL;
+                        const float ct0 = cj[tr[0]], ct1 = cj[tr[1]];
+                        const float* xj = xs + j * TILE * LDX;
+#pragma unroll
+                        for (int kg = 0; kg < 8; ++kg) {
+                            if (kg >= nkg) break;
+                            const int u = ut * TILE + 8 * kg + 2 * t4;   // in the chunk
+                            const float cu0 = cj[u], cu1 = cj[u + 1];
+                            uint32_t wh[4], wl[4], bh[8][2], bl[8][2];
+                            split_tf32(u <= tr[0] ? sc[kg][0] * __expf(ct0 - cu0) : 0.f, wh[0], wl[0]);
+                            split_tf32(u <= tr[1] ? sc[kg][2] * __expf(ct1 - cu0) : 0.f, wh[1], wl[1]);
+                            split_tf32(u + 1 <= tr[0] ? sc[kg][1] * __expf(ct0 - cu1) : 0.f, wh[2], wl[2]);
+                            split_tf32(u + 1 <= tr[1] ? sc[kg][3] * __expf(ct1 - cu1) : 0.f, wh[3], wl[3]);
+                            const float* xr = xj + (8 * kg + 2 * t4) * LDX + g;
+#pragma unroll
+                            for (int jp = 0; jp < 8; ++jp) {
+                                split_tf32(xr[8 * jp], bh[jp][0], bl[jp][0]);
+                                split_tf32(xr[LDX + 8 * jp], bh[jp][1], bl[jp][1]);
+                            }
+                            mma_3xtf32<8>(acc[j], wh, wl, bh, bl);
+                        }
+                    }
+                }
+                __syncthreads();   // every warp is done with this stage before it refills
+            }
+
+#pragma unroll
+            for (int j = 0; j < HG; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const int s = c0 + tr[r];
+                    if (tr[r] >= L || s >= S) continue;
+                    float* yr = yb + s * x_stride + j * P;
+#pragma unroll
+                    for (int jp = 0; jp < 8; ++jp) {
+                        if (8 * jp >= P) break;
+                        *reinterpret_cast<float2*>(yr + 8 * jp + 2 * t4) =
+                            make_float2(acc[j][jp][2 * r], acc[j][jp][2 * r + 1]);
+                    }
+                }
+        }
+
+        // 3. state: h = exp(cum_L) h + (x o exp(cum_L - cum))^T B over the
+        //    chunk's key tiles. Units of (head j, 16 rows of P, 64 columns of
+        //    N), warp w taking units w and w + 8 (2 x 4 x 2 at most); A is the
+        //    decayed x (k = t4: step 2 t4, k = t4 + 4: step 2 t4 + 1, as above)
+        if (!do_state) continue;
+        const int n_pg = (P + 15) / 16, n_ng = (N + 63) / 64, n_units = HG * n_pg * n_ng;
+        float hacc[2][8][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn)
+                hacc[i][jn][0] = hacc[i][jn][1] = hacc[i][jn][2] = hacc[i][jn][3] = 0.f;
+        load_keys(c0, 0, 0);
+        cp_async_commit();
+        for (int ut = 0; ut < n_kt; ++ut) {
+            next_keys(c0, ut, n_kt);
+            const float* bs = ring + (ut & 1) * STAGE;
+            const float* xs = bs + TILE * LDN;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const int unit = warp + 8 * i;
+                if (unit >= n_units) break;
+                const int j = unit / (n_pg * n_ng), pg = (unit / n_ng) % n_pg, ng = unit % n_ng;
+                const float* ej = eout + j * MAXL + ut * TILE;
+                const float* xj = xs + j * TILE * LDX + 16 * pg + g;   // this thread's column p
+                const float* bj = bs + 64 * ng + g;
+#pragma unroll 2
+                for (int ks = 0; ks < TILE / 8; ++ks) {
+                    const int u = 8 * ks + 2 * t4;            // in the tile
+                    const float e0 = ej[u], e1 = ej[u + 1];
+                    uint32_t ah[4], al[4], bh[8][2], bl[8][2];
+                    split_tf32(xj[u * LDX] * e0, ah[0], al[0]);
+                    split_tf32(xj[u * LDX + 8] * e0, ah[1], al[1]);
+                    split_tf32(xj[(u + 1) * LDX] * e1, ah[2], al[2]);
+                    split_tf32(xj[(u + 1) * LDX + 8] * e1, ah[3], al[3]);
+#pragma unroll
+                    for (int jn = 0; jn < 8; ++jn) {
+                        split_tf32(bj[u * LDN + 8 * jn], bh[jn][0], bl[jn][0]);
+                        split_tf32(bj[(u + 1) * LDN + 8 * jn], bh[jn][1], bl[jn][1]);
+                    }
+                    mma_3xtf32<8>(hacc[i], ah, al, bh, bl);
+                }
+            }
+            __syncthreads();   // every warp is done with this stage before it refills
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int unit = warp + 8 * i;
+            if (unit >= n_units) break;
+            const int j = unit / (n_pg * n_ng), pg = (unit / n_ng) % n_pg, ng = unit % n_ng;
+            const float a_chunk = ein[j * MAXL + L - 1];   // exp(cum_L)
+#pragma unroll
+            for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int p = 16 * pg + g + 8 * (e >> 1), n = 64 * ng + 8 * jn + 2 * t4 + (e & 1);
+                    if (p >= P || n >= N) continue;
+                    float* hp = hb + (long long)j * P * N + p * N + n;
+                    float v = hacc[i][jn][e];
+                    if (c > 0) v += *hp * a_chunk;
+                    *hp = v;
+                }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 cudaError_t launch_f32(const void* x, const void* a, const void* B, const void* C, void* y,
@@ -1109,12 +1480,44 @@ cudaError_t launch_wgmma(const void* x, const void* a, const void* B, const void
                : launch_wgmma_hg<1>(x, a, B, C, y, state, scratch, Bb, S, H, P, N, L, stream);
 }
 
+template <int HG>
+cudaError_t launch_tf32x3_hg(const void* x, const void* a, const void* B, const void* C, void* y,
+                             void* state, int Bb, int S, int H, int P, int N, int L,
+                             cudaStream_t stream) {
+    const size_t smem = t3_smem_floats<HG>() * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_scan_tf32x3_kernel<HG>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    // one chunk: a block for each pass of y and one for the state (the kernel's note)
+    const dim3 grid(Bb * (H / HG), S <= L ? (L + T3_ROWS - 1) / T3_ROWS + 1 : 1);
+    ssd_scan_tf32x3_kernel<HG><<<grid, T3_THREADS, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(B),
+        static_cast<const float*>(C), static_cast<float*>(y), static_cast<float*>(state), S, H,
+        P, N, L);
+    return cudaGetLastError();
+}
+
+// two heads a block where H is even (C B^T computed once for both), else one;
+// P and N multiples of 8 and 16-byte aligned bases (the cp.async copies)
+cudaError_t launch_tf32x3(const void* x, const void* a, const void* B, const void* C, void* y,
+                          void* state, int Bb, int S, int H, int P, int N, int L,
+                          cudaStream_t stream) {
+    if (P % 8 || N % 8
+        || ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(B)
+             | reinterpret_cast<uintptr_t>(C)) & 15) != 0)
+        return cudaErrorInvalidValue;
+    return H % 2 == 0
+               ? launch_tf32x3_hg<2>(x, a, B, C, y, state, Bb, S, H, P, N, L, stream)
+               : launch_tf32x3_hg<1>(x, a, B, C, y, state, Bb, S, H, P, N, L, stream);
+}
+
 }  // namespace
 
-// route: 0 float32 (the CUDA-core kernel), 1 bfloat16 on mma.sync, 2
-// bfloat16 on wgmma. Limits: P <= 64, N <= 128, 1 <= L <= 256. scratch: the
-// wgmma kernel's private states when S > L (see _scratch_floats in
-// ssd_scan.py), else unused. Returns cudaGetLastError() after the launch.
+// route: 0 float32 on the CUDA cores, 1 bfloat16 on mma.sync, 2 bfloat16 on
+// wgmma, 3 float32 on the tensor cores (3xTF32). Limits: P <= 64, N <= 128,
+// 1 <= L <= 256. scratch: the wgmma kernel's private states when S > L (see
+// _scratch_floats in ssd_scan.py), else unused. Returns cudaGetLastError()
+// after the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* B, const void* C,
                             void* y, void* state, void* scratch, int route, int Bb, int S,
                             int H, int P, int N, int L, void* stream) {
@@ -1124,6 +1527,7 @@ extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* B, const v
         case 0: return launch_f32(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
         case 1: return launch_mma(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
         case 2: return launch_wgmma(x, a, B, C, y, state, scratch, Bb, S, H, P, N, L, st);
+        case 3: return launch_tf32x3(x, a, B, C, y, state, Bb, S, H, P, N, L, st);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -10,8 +10,10 @@ q's dtype.
 
 What bounds it on the card: bytes at the one-shot path's shapes (gemma-2b,
 B 4, S 256, H 8, KV 1, D 256, bf16: 9.4 MB against 2.1 GFLOP, 2.8 us at
-3.35 TB/s). Three kernels, one per route; :func:`route` picks it from the
-operands alone (a pure function, so the CPU tests reach it):
+3.35 TB/s); in float32 the operations (2.1 GFLOP at 165 TFLOP/s, the
+tensor cores' TF32 rate over the three products of 3xTF32: 13 us). Four
+kernels, one per route; :func:`route` picks it from the operands alone (a
+pure function, so the CPU tests reach it):
 
 * ``wgmma``: bf16 operands that a TMA tensor map can describe (every base
   pointer 16-byte aligned, D in :data:`WGMMA_HEAD_DIMS`) run
@@ -19,8 +21,15 @@ operands alone (a pure function, so the CPU tests reach it):
   filled by TMA with mbarrier completion, products by warpgroup ``wgmma``;
 * ``mma_sync``: other bf16 operands (an unaligned view, D 32) run
   ``flash_fwd_mma_kernel`` (``mma.sync`` fed by ``cp.async``);
-* ``cuda_cores``: float32 operands run ``flash_fwd_kernel`` in float32
-  throughout, since bf16 or TF32 tensor cores cannot meet the float32 check.
+* ``tf32x3``: float32 operands whose base pointers are 16-byte aligned
+  run ``flash_fwd_tf32x3_kernel``: ``mma.sync`` m16n8k8 on TF32 operands,
+  each float32 value split in registers into hi + lo and every product
+  taken as three (hi hi + hi lo + lo hi, float32 sums), fed by ``cp.async``
+  double buffering. One TF32 product keeps 10 bits of the significand and
+  misses the float32 check (2e-5) by far; the three-term split keeps about
+  21 and meets it;
+* ``cuda_cores``: any other float32 operand (an unaligned view) runs
+  ``flash_fwd_kernel``, in float32 on the CUDA cores.
 
 Both bf16 kernels keep float32 softmax statistics and accumulators and
 round the probabilities to bf16 once before PV. The source says how each
@@ -38,14 +47,14 @@ import math
 import torch
 
 from . import build, ref
-from .runtime import use_kernel
+from .runtime import route_takes, use_kernel
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernels' instantiations
 WGMMA_HEAD_DIMS = (64, 128, 256)     # flash_fwd_wgmma_kernel's
 _DTYPES = (torch.float32, torch.bfloat16)
 # each route's code in the C entry's switch (flash_fwd_kernel,
-# flash_fwd_mma_kernel, flash_fwd_wgmma_kernel)
-ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
+# flash_fwd_mma_kernel, flash_fwd_wgmma_kernel, flash_fwd_tf32x3_kernel)
+ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2, "tf32x3": 3}
 ROUTES = tuple(ROUTE_CODES)
 _MAX_GRID_Y = 65535                  # B * H rides on grid axis 1
 # flash_attention_fwd(q, k, v, out, route, B, Sq, Sk, H, KV, D, causal,
@@ -77,13 +86,16 @@ def _check(q, k, v, window) -> None:
 
 
 def route(q, k, v) -> str:
-    """The route of a launch on these operands: ``cuda_cores`` for float32,
-    ``wgmma`` for bf16 that TMA can describe (16-byte aligned base pointers;
-    contiguous rows of D in :data:`WGMMA_HEAD_DIMS`, a multiple of 16 bytes),
-    ``mma_sync`` for any other bf16."""
+    """The route of a launch on these operands: for float32, ``tf32x3``
+    where every base pointer is 16-byte aligned (each row of D floats then
+    starts on a 16-byte line for ``cp.async``), else ``cuda_cores``; for
+    bf16, ``wgmma`` where TMA can describe them (16-byte aligned base
+    pointers; contiguous rows of D in :data:`WGMMA_HEAD_DIMS`, a multiple of
+    16 bytes), else ``mma_sync``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     if q.dtype == torch.float32:
-        return "cuda_cores"
-    if q.shape[-1] in WGMMA_HEAD_DIMS and all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "tf32x3" if aligned else "cuda_cores"
+    if q.shape[-1] in WGMMA_HEAD_DIMS and aligned:
         return "wgmma"
     return "mma_sync"
 
@@ -91,13 +103,13 @@ def route(q, k, v) -> str:
 def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None) -> torch.Tensor:
     """Check the operands, allocate the output and launch ``fn`` on
     ``stream`` on the operands' route (``route_name`` picks another route
-    that takes them: ``mma_sync`` for any bf16, to time it beside
-    ``wgmma``); raise on a nonzero CUDA error."""
+    that takes them, :func:`~.runtime.route_takes`: ``mma_sync`` for any
+    bf16, ``cuda_cores`` for any float32, to time them beside ``wgmma`` and
+    ``tf32x3``); raise on a nonzero CUDA error."""
     _check(q, k, v, window)
     own = route(q, k, v)
     name = route_name or own
-    if name not in ROUTE_CODES or (name == "wgmma" and own != "wgmma") \
-            or (name == "cuda_cores") != (own == "cuda_cores"):
+    if not route_takes(name, q.dtype, own):
         raise ValueError(f"route {name!r} does not take these operands (theirs: {own!r})")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]

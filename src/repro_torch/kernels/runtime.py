@@ -27,3 +27,12 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain version for device {dev}")
+
+
+def route_takes(name: str, dtype: torch.dtype, own: str) -> bool:
+    """Whether K2's or K3's route ``name`` takes operands of ``dtype`` whose
+    own route is ``own``: ``cuda_cores`` any float32 and ``mma_sync`` any
+    bf16; ``tf32x3`` and ``wgmma`` only the operands that route to them."""
+    f32 = dtype == torch.float32
+    return {"cuda_cores": f32, "mma_sync": not f32, "tf32x3": own == "tf32x3",
+            "wgmma": own == "wgmma"}.get(name, False)

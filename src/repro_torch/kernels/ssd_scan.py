@@ -10,9 +10,11 @@ state (Bb, H, P, N) in float32.
 
 What bounds it on the card: bytes at the one-shot path's shapes
 (mamba2-2.7b, Bb 4, S 256, H 80, P 64, N 128, chunk 256, bf16: 32.3 MB
-against 6.7 GFLOP of lower-triangle work, 9.6 us at 3.35 TB/s). Three
-kernels, one per route; :func:`route` picks it from the operands alone (a
-pure function, so the CPU tests reach it):
+against 4.1 GFLOP of lower-triangle work with C B^T once per batch, 9.6 us
+at 3.35 TB/s); in float32 the operations (24.6 us at 165 TFLOP/s, the
+tensor cores' TF32 rate over the three products of 3xTF32). Four kernels,
+one per route; :func:`route` picks it from the operands alone (a pure
+function, so the CPU tests reach it):
 
 * ``wgmma``: bf16 x, B and C that a TMA tensor map can describe (base
   pointers 16-byte aligned, P and N multiples of 8) run
@@ -21,8 +23,15 @@ pure function, so the CPU tests reach it):
   products by warpgroup ``wgmma``;
 * ``mma_sync``: other bf16 operands run ``ssd_scan_mma_kernel``, one block
   per (batch, head) on ``mma.sync``;
-* ``cuda_cores``: float32 runs ``ssd_scan_kernel`` in float32 throughout,
-  since bf16 or TF32 tensor cores cannot meet the float32 check.
+* ``tf32x3``: float32 x, B and C with P and N multiples of 8 and 16-byte
+  aligned base pointers run ``ssd_scan_tf32x3_kernel``: a block owns two
+  heads of a batch (C B^T once for both), ``mma.sync`` m16n8k8 on TF32
+  operands, each float32 factor split in registers into hi + lo and every
+  product taken as three (float32 sums), key tiles double-buffered by
+  ``cp.async``. One TF32 product misses the float32 check (2e-4) by far;
+  the three-term split meets it;
+* ``cuda_cores``: any other float32 operand runs ``ssd_scan_kernel``, in
+  float32 on the CUDA cores.
 
 Both bf16 kernels split the float32 factors (the decayed scores, the
 decayed x, the state) into bf16 high and low parts against the exact bf16
@@ -39,14 +48,14 @@ import ctypes
 import torch
 
 from . import build, ref
-from .runtime import use_kernel
+from .runtime import route_takes, use_kernel
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
 TILE = 64                      # steps per query tile of the wgmma kernel
 _DTYPES = (torch.float32, torch.bfloat16)
 # each route's code in the C entry's switch (ssd_scan_kernel,
-# ssd_scan_mma_kernel, ssd_scan_wgmma_kernel)
-ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2}
+# ssd_scan_mma_kernel, ssd_scan_wgmma_kernel, ssd_scan_tf32x3_kernel)
+ROUTE_CODES = {"cuda_cores": 0, "mma_sync": 1, "wgmma": 2, "tf32x3": 3}
 ROUTES = tuple(ROUTE_CODES)
 # ssd_scan_fwd(x, a, B, C, y, state, scratch, route, Bb, S, H, P, N, L, stream)
 ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -79,16 +88,16 @@ def _check(x, a, B, C, chunk) -> None:
 
 
 def route(x, B, C) -> str:
-    """The route of a launch on these operands: ``cuda_cores`` for float32,
-    ``wgmma`` for bf16 that TMA can describe (16-byte aligned base pointers,
-    P and N multiples of 8, so that every row stride is a multiple of 16
-    bytes), ``mma_sync`` for any other bf16."""
+    """The route of a launch on these operands: where P and N are multiples
+    of 8 and every base pointer is 16-byte aligned (so that every row starts
+    on a 16-byte line, for TMA and ``cp.async``), ``tf32x3`` for float32 and
+    ``wgmma`` for bf16; else ``cuda_cores`` for float32 and ``mma_sync`` for
+    bf16."""
+    tiled = x.shape[-1] % 8 == 0 and B.shape[-1] % 8 == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in (x, B, C))
     if x.dtype == torch.float32:
-        return "cuda_cores"
-    if x.shape[-1] % 8 == 0 and B.shape[-1] % 8 == 0 \
-            and all(t.data_ptr() % 16 == 0 for t in (x, B, C)):
-        return "wgmma"
-    return "mma_sync"
+        return "tf32x3" if tiled else "cuda_cores"
+    return "wgmma" if tiled else "mma_sync"
 
 
 def _scratch_floats(bb, s, h, p, n, chunk) -> int:
@@ -103,14 +112,14 @@ def _scratch_floats(bb, s, h, p, n, chunk) -> int:
 def _launch(fn, x, a, B, C, chunk: int, stream, route_name=None):
     """Check the operands, allocate y, the state (and the wgmma kernel's
     scratch) and launch ``fn`` on ``stream`` on the operands' route
-    (``route_name`` picks another route that takes them: ``mma_sync`` for
-    any bf16, to time it beside ``wgmma``); raise on a nonzero CUDA
-    error."""
+    (``route_name`` picks another route that takes them,
+    :func:`~.runtime.route_takes`: ``mma_sync`` for any bf16, ``cuda_cores``
+    for any float32, to time them beside ``wgmma`` and ``tf32x3``); raise on
+    a nonzero CUDA error."""
     _check(x, a, B, C, chunk)
     own = route(x, B, C)
     name = route_name or own
-    if name not in ROUTE_CODES or (name == "wgmma" and own != "wgmma") \
-            or (name == "cuda_cores") != (own == "cuda_cores"):
+    if not route_takes(name, x.dtype, own):
         raise ValueError(f"route {name!r} does not take these operands (theirs: {own!r})")
     bb, s, h, p = x.shape
     n = B.shape[2]

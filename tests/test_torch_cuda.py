@@ -8,15 +8,18 @@ import only torch and the port, so they run where JAX is absent:
 Without a card they skip. Tolerances: K1 float32 rtol = atol = 1e-6 (FMA
 contraction and summation order), stacked rows held bitwise, and bitwise
 to the plain version at the served shape (K1 is built without FMA
-contraction); K2 and K3 at
-the JAX kernel tests' own tolerances (K2 2e-5 float32 and 2e-2 bf16, K3
-2e-4 float32 and 5e-2 bf16: other summation orders, a bf16 rounding of the
-output that a last-bit difference can flip). Each case checks that its
-route's launch count, and only that, went up: bf16 operands that TMA can
-describe run K2's and K3's wgmma kernels, other bf16 (D 32, odd widths,
-unaligned views) their mma.sync kernels, float32 their CUDA-core kernels;
-the mma.sync kernels are also held over the same shapes by asking for
-their route.
+contraction); K2 and K3 at the JAX kernel tests' own tolerances (K2 2e-5
+float32 and 2e-2 bf16, K3 2e-4 float32 and 5e-2 bf16: other summation
+orders, a bf16 rounding of the output that a last-bit difference can flip;
+K3 float32 at mamba2's full width and over four chunks at its widths adds
+an absolute term of 1e-5 x max|want|, sums of 256 x 128 terms on outputs
+of order hundreds). Each case checks that its route's launch count, and
+only that, went up: bf16 operands that TMA can describe run
+K2's and K3's wgmma kernels, other bf16 (D 32, odd widths, unaligned views)
+their mma.sync kernels; float32 with 16-byte aligned bases (K3: P and N
+multiples of 8) their 3xTF32 tensor-core kernels, other float32 (unaligned
+views, odd widths) their CUDA-core kernels. The mma.sync and CUDA-core
+kernels are also held over the same shapes by asking for their route.
 
 The training slice's card tests: a float32 train step against the CPU
 (loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
@@ -136,17 +139,22 @@ FA_CASES = [
 
 def _fa_route(dtype, d):
     if dtype == torch.float32:
-        return "cuda_cores"
+        return "tf32x3"
     return "wgmma" if d in FA.WGMMA_HEAD_DIMS else "mma_sync"
 
 
-def _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, route=None):
-    """K2 on its route (``route``: asked for) against the plain version."""
+def _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, route=None, unaligned=False):
+    """K2 on its route (``route``: asked for; ``unaligned``: on views that
+    start 4 bytes past a 16-byte line) against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
     n = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = n(b, sq, h, d), n(b, sk, kv, d), n(b, sk, kv, d)
     before, routes = FA.flash_attention.launches, dict(FA.flash_attention.route_launches)
-    if route is None:
+    if unaligned:
+        got = FA.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=causal,
+                                 window=window)
+        route = "cuda_cores" if dtype == torch.float32 else "mma_sync"
+    elif route is None:
         got = FA.flash_attention(q, k, v, causal=causal, window=window)
     else:
         from repro_torch.kernels import build
@@ -173,6 +181,20 @@ def test_cuda_flash_attention_mma_sync_matches_plain(cuda, b, sq, sk, h, kv, d, 
     _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.bfloat16, route="mma_sync")
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
+def test_cuda_flash_attention_cuda_cores_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window):
+    """The CUDA-core kernel, asked for on float32 operands that the 3xTF32
+    kernel would take, over the same shapes."""
+    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.float32, route="cuda_cores")
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
+def test_cuda_flash_attention_float32_unaligned_views(cuda, b, sq, sk, h, kv, d, causal, window):
+    """float32 views that do not start on a 16-byte line take the
+    CUDA-core kernel, with the same results."""
+    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.float32, unaligned=True)
+
+
 SS_CASES = [
     (2, 64, 2, 16, 8, 16),
     (1, 96, 3, 8, 16, 32),
@@ -184,17 +206,23 @@ SS_CASES = [
 ]
 
 
-def _ss_check(cuda, b, s, h, p, n, chunk, dtype, route=None):
-    """K3 on its route (``route``: asked for) against the plain version."""
+def _ss_check(cuda, b, s, h, p, n, chunk, dtype, route=None, unaligned=False, atol_scale=0.0):
+    """K3 on its route (``route``: asked for; ``unaligned``: on views of x,
+    B and C that start 4 bytes past a 16-byte line) against the plain
+    version (``atol_scale``: an absolute term of that times max|want|)."""
     g = torch.Generator(device=cuda).manual_seed(s + h + p)
     r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
     x, B, C = r(b, s, h, p).to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(dtype)
     a = torch.rand((b, s, h), generator=g, device=cuda) * 0.299 + 0.7
     before, routes = SS.ssd_scan.launches, dict(SS.ssd_scan.route_launches)
-    if route is None:
+    f32 = dtype == torch.float32
+    if unaligned:
+        y, st = SS.ssd_scan(_unaligned(x), a, _unaligned(B), _unaligned(C), chunk=chunk)
+        own = "cuda_cores" if f32 else "mma_sync"
+    elif route is None:
         y, st = SS.ssd_scan(x, a, B, C, chunk=chunk)
-        own = "cuda_cores" if dtype == torch.float32 else \
-            "wgmma" if p % 8 == 0 and n % 8 == 0 else "mma_sync"
+        tiled = p % 8 == 0 and n % 8 == 0
+        own = ("tf32x3" if tiled else "cuda_cores") if f32 else ("wgmma" if tiled else "mma_sync")
     else:
         from repro_torch.kernels import build
         fn = build.entry("ssd_scan", "ssd_scan_fwd", SS.ARGTYPES)
@@ -203,9 +231,10 @@ def _ss_check(cuda, b, s, h, p, n, chunk, dtype, route=None):
     _launched_once(SS.ssd_scan, own, before, routes)
     y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
     torch.cuda.synchronize()
-    tol = _tol(dtype, 2e-4, 5e-2)
-    torch.testing.assert_close(y.float(), y_w.float(), **tol)
-    torch.testing.assert_close(st, st_w, **tol)
+    for got, want in ((y.float(), y_w.float()), (st, st_w)):
+        tol = _tol(dtype, 2e-4, 5e-2)
+        tol["atol"] = max(tol["atol"], atol_scale * want.abs().max().item())
+        torch.testing.assert_close(got, want, **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,6 +248,20 @@ def test_cuda_ssd_scan_mma_sync_matches_plain(cuda, b, s, h, p, n, chunk):
     """The mma.sync kernel, asked for on bf16 operands, over the
     same shapes."""
     _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, route="mma_sync")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
+def test_cuda_ssd_scan_cuda_cores_matches_plain(cuda, b, s, h, p, n, chunk):
+    """The CUDA-core kernel, asked for on float32 operands, over the same
+    shapes."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32, route="cuda_cores")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
+def test_cuda_ssd_scan_float32_unaligned_views(cuda, b, s, h, p, n, chunk):
+    """float32 views of x, B and C that do not start on a 16-byte line take
+    the CUDA-core kernel, with the same results."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32, unaligned=True)
 
 
 MAMBA2_CASES = [
@@ -240,8 +283,19 @@ def test_cuda_ssd_scan_mma_sync_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chu
     _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, route="mma_sync")
 
 
+@pytest.mark.parametrize("route", ["tf32x3", "cuda_cores"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA2_CASES)
+def test_cuda_ssd_scan_float32_at_mamba2_widths(cuda, b, s, h, p, n, chunk, route):
+    """float32 at mamba2's widths, over four chunks and at the full width,
+    on the 3xTF32 kernel (its own route) and on the CUDA-core kernel (asked
+    for): within 2e-4 and 1e-5 x max|want|."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32,
+              route=None if route == "tf32x3" else route, atol_scale=1e-5)
+
+
 def _unaligned(t):
-    """A contiguous copy of t whose data starts 2 bytes past a 16-byte line."""
+    """A contiguous copy of t whose data starts one element (2 bytes in
+    bf16, 4 in float32) past a 16-byte line."""
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = flat[1:].view(t.shape)
     out.copy_(t)

@@ -1,12 +1,13 @@
 """Which kernel a launch takes in K2 (flash attention) and K3 (SSD scan),
-on the CPU. Three routes, picked by a pure function of the operands:
-``wgmma`` for bf16 that a TMA tensor map can describe (16-byte aligned base
-pointers; K2: D 64, 128 or 256; K3: P and N multiples of 8), ``mma_sync``
-for any other bf16, ``cuda_cores`` for float32. The wrapper hands the C
-entry the route's code and counts each launch on its route; CPU tensors
-(the plain versions) launch nothing. The kernels themselves run only on the
-card (``tests/test_torch_cuda.py``); here the C entry points' route switch
-is held to the wrappers' routes."""
+on the CPU. Four routes, picked by a pure function of the operands: for
+bf16, ``wgmma`` where a TMA tensor map can describe them (16-byte aligned
+base pointers; K2: D 64, 128 or 256; K3: P and N multiples of 8), else
+``mma_sync``; for float32, ``tf32x3`` where every base pointer is 16-byte
+aligned (K3: P and N multiples of 8), else ``cuda_cores``. The wrapper
+hands the C entry the route's code and counts each launch on its route;
+CPU tensors (the plain versions) launch nothing. The kernels themselves run
+only on the card (``tests/test_torch_cuda.py``); here the C entry points'
+route switch is held to the wrappers' routes."""
 import re
 from pathlib import Path
 
@@ -25,15 +26,24 @@ SOURCES = {
     "flash_attention": ("flash_attention_fwd", {
         "wgmma": ("launch_wgmma_dim", "launch_wgmma", "flash_fwd_wgmma_kernel"),
         "mma_sync": ("launch_dim<true>", "launch_mma", "flash_fwd_mma_kernel"),
+        "tf32x3": ("launch_tf32x3_dim", "launch_tf32x3", "flash_fwd_tf32x3_kernel"),
         "cuda_cores": ("launch_dim<false>", "launch_f32", "flash_fwd_kernel")}),
     "ssd_scan": ("ssd_scan_fwd", {
         "wgmma": ("launch_wgmma", "launch_wgmma_hg", "ssd_scan_wgmma_kernel"),
         "mma_sync": ("launch_mma", "launch_mma", "ssd_scan_mma_kernel"),
+        "tf32x3": ("launch_tf32x3", "launch_tf32x3_hg", "ssd_scan_tf32x3_kernel"),
         "cuda_cores": ("launch_f32", "launch_f32", "ssd_scan_kernel")}),
 }
+ROUTE_NAMES = ["wgmma", "mma_sync", "tf32x3", "cuda_cores"]
 # the one-shot path's attention (B, S, H, KV, D) and scan (Bb, S, H, P, N)
 # shapes, cut to a short sequence: the route does not depend on B or S
 MAIN_PATH_ARCHS = ["gemma_2b", "mixtral_8x7b", "whisper_tiny", "paligemma_3b", "mamba2_2p7b"]
+# the float32 one-shot paths' widths: every main-path arch at its published
+# widths, the paper-native cifar10-scorenet (float32 itself), and the reduced
+# float32 models that the card is held to the CPU with
+FLOAT32_ARCHS = [(a, False) for a in MAIN_PATH_ARCHS + ["cifar10_scorenet", "jamba_1p5_large"]] \
+    + [(a, True) for a in ["gemma_2b", "mamba2_2p7b", "jamba_1p5_large", "mixtral_8x7b",
+                           "whisper_tiny", "paligemma_3b"]]
 
 
 def _operands(mod, dtype):
@@ -46,10 +56,11 @@ def _operands(mod, dtype):
             n(1, 8, 8), n(1, 8, 8))
 
 
-def _arch_operands(arch, dtype=torch.bfloat16, seq=8):
-    """Operands of K2 or K3 at ``arch``'s head widths, as the one-shot path
-    makes them (contiguous, freshly allocated)."""
-    cfg = get_config(arch)
+def _arch_operands(arch, dtype=torch.bfloat16, seq=8, reduced=False):
+    """Operands of K2 or K3 at ``arch``'s head widths (``reduced``: its
+    reduced config's), as the one-shot path makes them (contiguous, freshly
+    allocated)."""
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
     if cfg.ssm is not None:
         p, n = cfg.ssm.head_dim, cfg.ssm.state_dim
         h = cfg.ssm.expand * cfg.d_model // p
@@ -84,7 +95,7 @@ def _launch(mod, entry, ops, route=None):
     return mod._launch(entry, *ops, 8, None, route)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "mma_sync", "cuda_cores"])
+@pytest.mark.parametrize("route", ROUTE_NAMES)
 @pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
 def test_dtype_takes_its_route_in_the_c_entry(mod, route):
     """The C entry's switch calls, for each route's code, that route's
@@ -114,9 +125,20 @@ def test_main_path_shapes_take_wgmma(arch):
     assert _route(mod, ops) == "wgmma"
 
 
+@pytest.mark.parametrize("arch,reduced", FLOAT32_ARCHS)
+def test_float32_takes_tf32x3(arch, reduced):
+    """float32 operands as the one-shot path makes them take the 3xTF32
+    kernels, at every arch's widths the float32 paths run."""
+    mod, ops = _arch_operands(arch, torch.float32, reduced=reduced)
+    assert _route(mod, ops) == "tf32x3"
+
+
 @pytest.mark.parametrize("arch", MAIN_PATH_ARCHS)
 def test_float32_takes_cuda_cores(arch):
+    """float32 views whose data do not start on a 16-byte line: no 16-byte
+    cp.async can copy their rows, so the CUDA-core kernel takes them."""
     mod, ops = _arch_operands(arch, torch.float32)
+    ops = tuple(_unaligned(t) if i != 1 or mod is FA else t for i, t in enumerate(ops))
     assert _route(mod, ops) == "cuda_cores"
 
 
@@ -141,15 +163,35 @@ def test_flash_attention_head_dims(shape, route):
     assert FA.route(q, k, k.clone()) == route
 
 
-@pytest.mark.parametrize("p,n,route", [
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_attention_float32_head_dims(d):
+    """The 3xTF32 kernel has every head dim of the kernels (32 to 256)."""
+    q = torch.zeros((1, 8, 2, d))
+    k = torch.zeros((1, 8, 1, d))
+    assert FA.route(q, k, k.clone()) == "tf32x3"
+
+
+SS_WIDTHS = [
     (64, 128, "wgmma"), (16, 8, "wgmma"), (8, 16, "wgmma"), (24, 72, "wgmma"),
     (12, 20, "mma_sync"),   # widths no multiple of 8: a row stride TMA cannot take
     (64, 20, "mma_sync"), (12, 128, "mma_sync"),
-])
+]
+
+
+@pytest.mark.parametrize("p,n,route", SS_WIDTHS)
 def test_ssd_scan_widths(p, n, route):
     x = torch.zeros(1, 8, 2, p, dtype=torch.bfloat16)
     B = torch.zeros(1, 8, n, dtype=torch.bfloat16)
     assert SS.route(x, B, B.clone()) == route
+
+
+@pytest.mark.parametrize("p,n,bf16_route", SS_WIDTHS)
+def test_ssd_scan_float32_widths(p, n, bf16_route):
+    """float32 takes the 3xTF32 kernel at the widths bf16 takes wgmma at (P
+    and N multiples of 8), the CUDA-core kernel at the others."""
+    x = torch.zeros(1, 8, 2, p)
+    B = torch.zeros(1, 8, n)
+    assert SS.route(x, B, B.clone()) == ("tf32x3" if bf16_route == "wgmma" else "cuda_cores")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -159,7 +201,7 @@ def test_cpu_tensors_launch_no_route(mod, dtype):
     before, routes = fn.launches, dict(fn.route_launches)
     out = fn(*_operands(mod, dtype))
     assert fn.launches == before and fn.route_launches == routes
-    assert set(fn.route_launches) == {"wgmma", "mma_sync", "cuda_cores"}
+    assert set(fn.route_launches) == {"wgmma", "mma_sync", "tf32x3", "cuda_cores"}
     assert (out if mod is FA else out[0]).dtype == dtype
 
 
@@ -181,7 +223,7 @@ def test_launch_counts_its_route(mod, dtype, monkeypatch):
     _launch(mod, entry, ops)
     code = seen[0][4] if mod is FA else seen[0][7]
     route = _route(mod, ops)
-    assert route == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
     assert code == mod.ROUTE_CODES[route]
     want = dict.fromkeys(mod.ROUTES, 0)
     want[route] = 1
@@ -190,26 +232,30 @@ def test_launch_counts_its_route(mod, dtype, monkeypatch):
 
 @pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
 def test_asked_route_must_take_the_operands(mod, monkeypatch):
-    """A route asked for (to time the mma_sync kernel beside the wgmma one)
-    launches with its own code when it takes the operands; wgmma on an
-    unaligned view, cuda_cores on bf16 or a bf16 route on float32 raise
-    before any launch."""
+    """A route asked for (to time the mma_sync and CUDA-core kernels beside
+    the wgmma and 3xTF32 ones) launches with its own code when it takes the
+    operands; wgmma or tf32x3 on an unaligned view, tf32x3 or cuda_cores on
+    bf16, or a bf16 route on float32 raise before any launch."""
     fn = _wrapper(mod)
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES, 0))
     seen = []
     entry = lambda *args: seen.append(args) or 0
-    ops = _operands(mod, torch.bfloat16)
+    ops, f32 = _operands(mod, torch.bfloat16), _operands(mod, torch.float32)
     _launch(mod, entry, ops, "mma_sync")
-    assert (seen[0][4] if mod is FA else seen[0][7]) == mod.ROUTE_CODES["mma_sync"]
-    assert fn.route_launches["mma_sync"] == 1
-    bad = [(tuple(_unaligned(t) if t.dtype == torch.bfloat16 else t for t in ops), "wgmma"),
-           (ops, "cuda_cores"), (_operands(mod, torch.float32), "mma_sync"),
-           (_operands(mod, torch.float32), "wgmma"), (ops, "tensor_cores")]
+    _launch(mod, entry, f32, "cuda_cores")
+    codes = [args[4] if mod is FA else args[7] for args in seen]
+    assert codes == [mod.ROUTE_CODES["mma_sync"], mod.ROUTE_CODES["cuda_cores"]]
+    assert fn.route_launches["mma_sync"] == 1 and fn.route_launches["cuda_cores"] == 1
+    unaligned = lambda operands: tuple(_unaligned(t) if t.dtype == operands[0].dtype else t
+                                       for t in operands)
+    bad = [(unaligned(ops), "wgmma"), (unaligned(f32), "tf32x3"),
+           (ops, "cuda_cores"), (ops, "tf32x3"), (f32, "mma_sync"),
+           (f32, "wgmma"), (ops, "tensor_cores")]
     for operands, route in bad:
         with pytest.raises(ValueError, match="does not take"):
             _launch(mod, entry, operands, route)
-    assert len(seen) == 1 and fn.launches == 1
+    assert len(seen) == 2 and fn.launches == 2
 
 
 @pytest.mark.parametrize("s,chunk,tiles", [(8, 8, 0), (40, 16, 1), (300, 256, 4), (600, 100, 2)])
