@@ -57,6 +57,14 @@ Phases (any failure raises and the script exits non-zero):
 5b. Scaling (``phase_scaling``): the bf16 wgmma and mma_sync kernels in
    turns at B 4, 8, 16, 32 of gemma's and whisper's attention and Bb 4, 8,
    16 of mamba2's scan, each time beside B 4's.
+5c. Stress (``phase_stress``, ``tools/kernel_stress.py``): the Hopper
+   routes launched many times with a sync after each: the wgmma kernels
+   (mbarrier rings) 6000 times each, K3 at mamba2's widths with Bb 4 and 16
+   in turn, K2 at gemma-2b's heads at B 4 and at B 1, S 1024 (key tiles
+   split between the warpgroups) and B 16 (not split) in turn; the tf32x3
+   kernels 2000 times each at the same shapes in float32. Every output
+   bitwise the first launch's at its shape; a fault or a wrong output fails
+   the run.
 6. Serving: gemma-2b at its published widths (18 layers, d_model 2048,
    MQA 8/1 heads of 256, d_ff 16384, vocab 256000, bf16), random weights
    from a seed, through ``DiffusionServeEngine`` with a ``RetirePolicy``
@@ -257,9 +265,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 K1_TOL = 1e-6          # float32 (K1 has no FMA contraction: it reads 0 against its plain version)
-K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # the JAX kernel tests' _tol
-K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}   # the JAX ssd_scan test's
-K3_F32_SCALE = 1e-5    # float32 at full width: atol = K3_F32_SCALE * max|want|
 CARD_VS_CPU_TOL = 1e-3  # reduced float32 model: cuBLAS vs CPU summation order
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
@@ -531,7 +536,7 @@ def phase_build(device):
           f"in {time.perf_counter() - t0:.1f} s (nvcc for sm_90a, one process per source)")
     out, faults = {}, []
     for name, lib in paths.items():
-        log = build.BUILD_DIR / f"{name}.log"
+        log = build.log_path(name)
         text = log.read_text() if log.exists() else ""
         regs = _ptxas_report(text)
         ops = _sass_mma_counts(lib)
@@ -674,7 +679,7 @@ def phase_k2(device):
                      (other, lambda: K.flash_attention(
                          _unaligned(q), _unaligned(k), _unaligned(v), causal=causal,
                          window=window))]
-            tol = K2_TOL[dtype]
+            tol = ref.K2_TOL[dtype]
             for route, run in runs:
                 got = run()
                 _sync(device)
@@ -793,14 +798,14 @@ def phase_k3(device):
             runs += [(other, lambda: launch(x, a, B, C, chunk, other)),
                      (other, lambda: K.ssd_scan(_unaligned(x), a, _unaligned(B),
                                                 _unaligned(C), chunk=chunk))]
-            tol = K3_TOL[dtype]
+            tol = ref.K3_TOL[dtype]
             for route, run in runs:
                 y, st = run()
                 _sync(device)
                 for got, want in ((y.float(), y_w.float()), (st, st_w)):
                     atol = tol
                     if dtype == torch.float32 and (p, n, chunk) == mamba[3:]:   # mamba2's widths
-                        atol = max(tol, K3_F32_SCALE * want.abs().max().item())
+                        atol = max(tol, ref.K3_F32_SCALE * want.abs().max().item())
                     torch.testing.assert_close(got, want, rtol=tol, atol=atol)
                 max_err[route] = max(max_err[route], _max_err(y, y_w), _max_err(st, st_w))
                 want_routes[route] += 1
@@ -817,7 +822,7 @@ def phase_k3(device):
         raise AssertionError(f"K3 checks took the routes {routes}, not {want_routes}")
     print(f"K3 check: {n_cases} runs (the JAX tests' 4 shapes, 2x600x4x64 N 128 in three "
           f"chunks of 256 and mamba2 4x256x80x64, N 128, chunk 256: float32 within 2e-4 "
-          f"(mamba2's widths: atol {K3_F32_SCALE} x max|want|) on its own route (tf32x3), on "
+          f"(mamba2's widths: atol {ref.K3_F32_SCALE} x max|want|) on its own route (tf32x3), on "
           f"cuda_cores asked for and as unaligned views; bf16 within 5e-2 on its own route, on "
           f"mma_sync asked for and as unaligned views), max abs err "
           + ", ".join(f"{r} {e:.3e}" for r, e in max_err.items()) + f"; routes {routes}")
@@ -881,6 +886,34 @@ def phase_scaling(device, routes=("wgmma", "mma_sync"), reps=3):
         base = out[kernel, r, (model, 4)]
         print(f"scaling {kernel} ({r}) at {model}'s shape, B {b}: {ms:.4f} ms; x{ms / base:.2f} "
               f"the time of B 4 for x{b / 4:.0f} the work")
+    return out
+
+
+def phase_stress(device, counts=(("wgmma", 6000), ("tf32x3", 2000)), seed=24):
+    """Each route of ``counts`` of K3 and K2 launched that many times over
+    the stress tool's shapes in turn, a sync after each, every output
+    bitwise the first launch's at its shape. Raises on a fault or a wrong
+    output (a fault leaves the CUDA context unusable: the run ends there).
+    Returns {(kernel, route): the tool's numbers}."""
+    if device.type != "cuda":
+        print("stress: skipped on the cpu (no kernels)")
+        return {}
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_stress
+    t0 = time.perf_counter()
+    out = {}
+    for route, n in counts:
+        for kernel in ("ssd_scan", "flash_attention"):
+            r = kernel_stress.stress(kernel, route, n, seed)
+            bad = r["fault"] or r["wrong"]
+            print(f"stress {kernel} {route}: {r['launches']} launches clean of {n} in "
+                  f"{r['seconds']:.2f} s ({r['rate']:.0f} launches/s; shapes "
+                  f"{list(kernel_stress.SHAPES[kernel])} in turn)" + (f"; {bad}" if bad else ""))
+            if bad:
+                raise AssertionError(f"stress {kernel} {route}: {bad}")
+            out[kernel, route] = r
+    print(f"stress: {sum(r['launches'] for r in out.values())} launches in "
+          f"{time.perf_counter() - t0:.1f} s (phase wall)")
     return out
 
 
@@ -3102,6 +3135,7 @@ def main(argv=None) -> int:
     k2 = phase_k2(device)
     k3 = phase_k3(device)
     phase_scaling(device)
+    phase_stress(device)
     lap("kernels")
     # each path's launches: the counts are set to 0 just before it and read after
     cfg, params = _init_model("gemma_2b", device, args.reduced)

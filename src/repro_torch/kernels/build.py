@@ -10,6 +10,11 @@ rather than confused with an old build. ``nvcc``'s
 output, with ptxas's register and shared-memory report, is kept beside the
 library as ``<name>.log``. A missing ``nvcc`` or a failed compile raises:
 nothing falls back to a plain version.
+
+``defines`` (``-D`` macros) build a variant of a source beside its main
+build, such as the rings' diagnostic build (``RING_DIAG``, ``csrc/ptx.cuh``)
+that ``tools/kernel_stress.py --diag`` asks for; nothing on the port's
+paths passes any.
 """
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
-_bound: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+_bound: dict[tuple[str, str, tuple[str, ...]], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -38,18 +43,32 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def _flags(defines=()) -> tuple[str, ...]:
+    return FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _variant(defines=()) -> str:
+    """The file-name suffix of a build with these macros ("" for none)."""
+    return "-" + hashlib.sha256(" ".join(defines).encode()).hexdigest()[:8] if defines else ""
+
+
+def library_path(name: str, defines=()) -> Path:
     """Where ``csrc/<name>.cu`` is built to, keyed by its source, the
     shared headers and the flags."""
     text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    text += " ".join(FLAGS).encode()
-    return BUILD_DIR / f"lib{name}-{hashlib.sha256(text).hexdigest()[:16]}.so"
+    text += " ".join(_flags(defines)).encode()
+    return BUILD_DIR / f"lib{name}{_variant(defines)}-{hashlib.sha256(text).hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, Path]:
+def log_path(name: str, defines=()) -> Path:
+    """nvcc's output of the last build of ``csrc/<name>.cu`` with these macros."""
+    return BUILD_DIR / f"{name}{_variant(defines)}.log"
+
+
+def build(names, defines=()) -> dict[str, Path]:
     """Compile every named source that is not built yet, one ``nvcc`` each,
     all started together; raise if any fails. Returns name -> library."""
-    paths = {n: library_path(n) for n in names}
+    paths = {n: library_path(n, defines) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -57,13 +76,13 @@ def build(names) -> dict[str, Path]:
     procs = {}
     for n, out in todo.items():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
     for n, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        (BUILD_DIR / f"{n}.log").write_text(log)
+        log_path(n, defines).write_text(log)
         if proc.returncode != 0:
             failed.append(f"{n}.cu: nvcc exited {proc.returncode}\n{log}")
         else:
@@ -73,20 +92,21 @@ def build(names) -> dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines=()) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (building it first if needed)."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build([name])[name]))
-    return _loaded[name]
+    key = (name, tuple(defines))
+    if key not in _loaded:
+        _loaded[key] = ctypes.CDLL(str(build([name], defines)[name]))
+    return _loaded[key]
 
 
-def entry(name: str, symbol: str, argtypes):
+def entry(name: str, symbol: str, argtypes, defines=()):
     """The C function ``symbol`` of ``csrc/<name>.cu`` (built and loaded at
     first use), bound with ``argtypes`` and an int result: the CUDA error
     of its launch."""
-    key = (name, symbol)
+    key = (name, symbol, tuple(defines))
     if key not in _bound:
-        fn = getattr(load(name), symbol)
+        fn = getattr(load(name, defines), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _bound[key] = fn

@@ -31,7 +31,17 @@
 //   flight: Q once, then K and V tiles of 64 keys into a ring of 2-4
 //   shared-memory stages (128-byte swizzle, each 64-column box at a 1024-byte
 //   boundary), with completion on "full" mbarriers and reuse gated by
-//   "empty" mbarriers (phase parity of use k is k & 1). A consumer
+//   "empty" mbarriers: a Ring (ptx.cuh), whose waits name only their
+//   barrier's current phase or the one before it. With the key tiles
+//   split, tile i is for warpgroup i % 2 alone, which waits on that stage's
+//   full barrier of its own, for its tiles in order; else both warpgroups
+//   wait for every tile, in order, and both release it (empty counts 256).
+//   (With the split over 3 stages (D 128, 256) tiles i and i + 3 share a
+//   stage and go to different warpgroups, so with one full barrier a stage
+//   warpgroup 1 could wait for a stage's next phase before warpgroup 0's
+//   copy had landed and pass at once; with 4 stages (D 64) a stage's tiles
+//   all go to one warpgroup, and unsplit both wait in order, so one
+//   barrier would do there.) A consumer
 //   warpgroup owns 64 query rows. The heads that share a KV head are packed
 //   into those rows (G = the largest power of two dividing H / KV, at most
 //   64: row r is position p0 + r / G of head h0 + r % G, one 4-d TMA box), so
@@ -492,12 +502,12 @@ __global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma
     using T = WgTile<D, KSPLIT>;
     constexpr int NC = T::NC, QT = T::QT, STAGES = T::STAGES, CH = T::CH, BOX = T::BOX;
     extern __shared__ unsigned char smem_raw[];
-    __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
+    // the K/V tiles (ptx.cuh's Ring): with KSPLIT tile i is for warpgroup
+    // i % 2 alone, which waits on a full barrier of its own; else for both
+    __shared__ Ring<STAGES, KSPLIT ? NC : 1> kv;
+    __shared__ __align__(8) uint64_t qbar[1];     // the Q tiles have landed
     unsigned char* qs = align_1024(smem_raw);      // QT tiles of CH boxes: 64 rows of Q each
     unsigned char* ring = qs + QT * T::Q_BYTES;    // STAGES x (CH boxes of K, CH of V)
-    uint64_t* full = bars;                         // a stage's K and V have landed
-    uint64_t* empty = bars + STAGES;               // its consumers are done with it
-    uint64_t* qbar = bars + 2 * STAGES;
 
     // a Q tile's 64 rows: G heads (sharing one KV head) at each of 64 / G
     // positions, row r = position p0 + r / G, head h0 + r % G; the block's QT
@@ -515,10 +525,7 @@ __global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma
     const int n_tiles = k_hi > k_lo ? (k_hi + 63) / 64 - t_begin : 0;
 
     if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&full[s], 1);
-            mbar_init(&empty[s], 128 * QT);
-        }
+        kv.init(128 * QT);
         mbar_init(qbar, 1);
         mbar_init_fence();
     }
@@ -532,17 +539,23 @@ __global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma
                 for (int c = 0; c < CH; ++c)
                     tma_load_4d(qs + qt * T::Q_BYTES + c * BOX, &qmap, qbar, 64 * c, h0,
                                 p0 + qt * npos, b);
-            for (int i = 0; i < n_tiles; ++i) {
-                const int s = i % STAGES;
-                if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
-                mbar_expect_tx(&full[s], T::STAGE_BYTES);
-                unsigned char* st = ring + s * T::STAGE_BYTES;
-                const int k0 = (t_begin + i) * 64;
+            struct Copy {   // K and V of tile i into its stage, reported to bar
+                uint64_t* bar;
+                int i;
+            };
+            auto issue = [&](const Copy& t) {
+                unsigned char* st = ring + (t.i % STAGES) * T::STAGE_BYTES;
+                const int k0 = (t_begin + t.i) * 64;
                 for (int c = 0; c < CH; ++c) {
-                    tma_load_4d(st + c * BOX, &kmap, &full[s], 64 * c, kvh, k0, b);
-                    tma_load_4d(st + (CH + c) * BOX, &vmap, &full[s], 64 * c, kvh, k0, b);
+                    tma_load_4d(st + c * BOX, &kmap, t.bar, 64 * c, kvh, k0, b);
+                    tma_load_4d(st + (CH + c) * BOX, &vmap, t.bar, 64 * c, kvh, k0, b);
                 }
-            }
+            };
+            HeldCopy<Copy> copies;
+            for (int i = 0; i < n_tiles; ++i)
+                copies.push(Copy{kv.fill(i, KSPLIT ? i % NC : 0, T::STAGE_BYTES, blockIdx.y), i},
+                            issue);
+            copies.flush(issue);
         }
         return;
     }
@@ -573,14 +586,14 @@ __global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma
     const float scale2 = scale * 1.4426950408889634f;      // log2 e
 
     if (n_tiles > 0) mbar_wait(qbar, 0);
+    RingPhases ph = 0;
     for (int i = KSPLIT ? wg : 0; i < n_tiles; i += KSPLIT ? NC : 1) {
-        const int s = i % STAGES;
-        mbar_wait(&full[s], (i / STAGES) & 1);
-        const unsigned char* ks = ring + s * T::STAGE_BYTES;
+        kv.wait(i, KSPLIT ? wg : 0, ph, blockIdx.y);
+        const unsigned char* ks = ring + (i % STAGES) * T::STAGE_BYTES;
         const unsigned char* vs = ks + CH * BOX;
         const int k0 = (t_begin + i) * 64, key0 = k0 + 2 * t4;
         if (k0 >= w_hi || k0 + 64 <= w_lo) {   // no key of the tile for these rows
-            mbar_arrive(&empty[s]);
+            kv.release(i);
             continue;
         }
 
@@ -667,7 +680,7 @@ __global__ void __launch_bounds__(WgTile<D, KSPLIT>::THREADS, 1) flash_fwd_wgmma
         for (int c = 0; c < CH; ++c) reg_fence(o[c]);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) reg_fence(pa[kk]);
-        mbar_arrive(&empty[s]);
+        kv.release(i);
     }
 
     if constexpr (!KSPLIT) {

@@ -5,7 +5,9 @@
 // products on the tensor cores as three TF32 products (mma.sync m16n8k8,
 // second part); then Hopper's own (third part): warpgroup products
 // (wgmma), tensor copies by the tensor memory accelerator (TMA) and
-// shared-memory barriers (mbarrier).
+// shared-memory barriers (mbarrier); and the rings of stages that the wgmma
+// kernels fill and take items from, with the contract of their barriers and
+// a diagnostic build (RING_DIAG) that checks it on the card (fourth part).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), for lane = 4 g + t of a warp:
@@ -274,11 +276,19 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                  :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+#ifdef RING_DIAG
+__device__ void ring_diag_note(int which, uint32_t parity, int site, int item, int work,
+                               long long seen);
+#endif
+
 // wait until the phase of this parity has completed (phases count from 0;
 // use k completes the phase of parity k & 1). A wait of more than about 2^33
 // cycles (seconds) traps, so a lost arrival fails the launch rather than
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// hanging the card. `site` (ring_site), `item` and `work` say what the wait
+// is for; only the diagnostic build (RING_DIAG) reads them, to record a
+// wait that timed out.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, int site = 0,
+                                          int item = 0, int work = 0) {
     const uint32_t addr = smem_addr(bar);
     long long t0 = 0;
     for (int spin = 0;; ++spin) {
@@ -288,7 +298,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
                      : "=r"(done) : "r"(addr), "r"(parity) : "memory");
         if (done) return;
         if (spin == 0) t0 = clock64();
-        else if (clock64() - t0 > (1LL << 33)) __trap();
+        else if (clock64() - t0 > (1LL << 33)) {
+#ifdef RING_DIAG
+            ring_diag_note(1, parity, site, item, work, -1);
+#endif
+            __trap();
+        }
     }
 }
 
@@ -357,6 +372,202 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 }
 
 // ---------------------------------------------------------------------------
+// rings of stages (fourth part): one producer thread fills shared-memory
+// stages by TMA, consumer warpgroups take the items
+//
+// Item k of a ring goes into stage k % STAGES and is for one set of
+// consumers: one warpgroup, or every consumer warpgroup of the block. A
+// stage has a `full` barrier for each set (one arrival a phase, the
+// producer's arrive.expect_tx, plus the copies' bytes) and one `empty`
+// barrier (the releases of the set that took its item: `releases` arrivals
+// a phase).
+//
+// The contract. mbarrier.try_wait.parity names a phase by its parity alone
+// and is true once the barrier's current phase has the other parity. So a
+// wait may only name the barrier's current phase or the one just before it:
+// a wait for the phase after the current one returns at once (its parity is
+// the last completed phase's), and one for two phases back never returns.
+// Why every wait on a Ring keeps it:
+//   * full[c][s] is waited on only by set c, by each of its threads, for
+//     each of the set's items in stage s in order (RingPhases keeps the
+//     parity of the next one). When set c waits for its n-th item in s
+//     (phase n), it has waited for its (n-1)-th, so phase n - 1 has
+//     completed. Phase n + 1 has not: its arrive comes from the fill of set
+//     c's next item in s, after the producer's wait on empty[s] for the item
+//     before that one, which is set c's n-th or a later item, released only
+//     after this wait. So the barrier stands at phase n or n + 1.
+//   * empty[s] is waited on only by the producer, for every item in order:
+//     phase m is the release of item k = s + m STAGES, awaited before item
+//     k + STAGES is filled. Item k is released only by the set it was filled
+//     for, after its fill, which followed the producer's wait for phase
+//     m - 1. So phase m gets exactly the releases of item k, and the wait
+//     finds the barrier at phase m or m + 1.
+//   * The producer's arrive on full[c][s] for set c's n-th item in s falls
+//     on phase n: phase n - 1 completed before set c released its (n-1)-th
+//     item, and the producer has seen that release on empty[s] (a barrier's
+//     phases complete in order).
+// Why a full barrier per set: with one a stage, waited for by the item's
+// parity (k / STAGES) & 1, and consecutive items of a stage taken by
+// different warpgroups (K3's rings, K2's with the key tiles split over 3
+// stages), one warpgroup can wait for phase n + 1 of a stage while the
+// other's copy for phase n has not landed. Its wait returns at once, it
+// reads the stage before the copy and releases it, the producer's next
+// arrive falls on a phase with no arrival left, and later a phase never
+// completes and its wait traps. RING_DIAG_SHARED_FULL builds that schedule
+// (tools/kernel_stress.py --shared-full) as the diagnostic build's positive
+// control: tests/test_torch_cuda.py requires it to fail under the held-back
+// copies of RING_DIAG_DELAY_NS, where this schedule runs clean, so the
+// delay is shown to catch a broken ring on every card run of the tests.
+// tests/test_torch_ring_protocol.py models both schedules.
+
+// a wait's barrier, for the diagnostic record: ring << 12 | kind << 8 |
+// set << 4 | stage (kind 1 full, 2 empty)
+__device__ __forceinline__ int ring_site(int ring, int kind, int set, int stage) {
+    return ring << 12 | kind << 8 | set << 4 | stage;
+}
+
+// a consumer set's parities of its next wait on each stage (bit s); every
+// thread of the set keeps its own copy
+using RingPhases = uint32_t;
+
+template <int STAGES, int SETS, int ID = 0>
+struct Ring {
+    uint64_t full[SETS][STAGES];
+    uint64_t empty[STAGES];
+#ifdef RING_DIAG
+    volatile int tag[STAGES];   // the item last filled into each stage
+#endif
+
+    // by one thread, before mbar_init_fence and the block's __syncthreads
+    __device__ void init(uint32_t releases) {
+        for (int s = 0; s < STAGES; ++s) {
+            for (int c = 0; c < SETS; ++c) mbar_init(&full[c][s], 1);
+            mbar_init(&empty[s], releases);
+        }
+    }
+
+    // the producer: wait until stage k % STAGES is free for item k (item
+    // k - STAGES released), then arrive on set c's full barrier expecting
+    // `bytes` of copies; returns that barrier, for the copies
+    __device__ uint64_t* fill(int k, int c, uint32_t bytes, int work) {
+        const int s = k % STAGES;
+        if (k >= STAGES)
+            mbar_wait(&empty[s], (k / STAGES - 1) & 1, ring_site(ID, 2, 0, s), k, work);
+        uint64_t* bar = &full[set_of(c)][s];
+#ifdef RING_DIAG
+        tag[s] = k;   // before the arrive, whose release publishes it
+#endif
+        mbar_expect_tx(bar, bytes);
+        return bar;
+    }
+
+    // a thread of set c: wait until item k has landed
+    __device__ void wait(int k, int c, RingPhases& phases, int work) {
+        const int s = k % STAGES;
+#ifdef RING_DIAG_SHARED_FULL
+        const uint32_t parity = (k / STAGES) & 1;   // the schedule that broke the contract
+#else
+        const uint32_t parity = (phases >> s) & 1;
+#endif
+        phases ^= 1u << s;
+        uint64_t* bar = &full[set_of(c)][s];
+        mbar_wait(bar, parity, ring_site(ID, 1, c, s), k, work);
+#ifdef RING_DIAG
+        // the wait's acquire sees the tag of the fill it waited for: another
+        // tag means the wait returned before item k was filled
+        const int seen = tag[s];
+        if (threadIdx.x % 128 == 0 && seen != k)
+            ring_diag_note(0, parity, ring_site(ID, 1, c, s), k, work, seen);
+#endif
+    }
+
+    // a thread of the set that took item k: done with its stage
+    __device__ void release(int k) { mbar_arrive(&empty[k % STAGES]); }
+
+    __device__ static int set_of(int c) {
+#ifdef RING_DIAG_SHARED_FULL
+        return 0;
+#else
+        return c;
+#endif
+    }
+};
+
+// the producer's copies of one item: issued at once, or in the diagnostic
+// build with RING_DIAG_DELAY_NS, every other item's held back (after its
+// fill) and issued that many ns after the next item's, so that a stage's
+// copy lands after the next stage's has landed and been consumed
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
+}
+
+template <class Copy>
+struct HeldCopy {
+#ifdef RING_DIAG_DELAY_NS
+    Copy held;
+    bool holding = false;
+#endif
+    template <class Issue>
+    __device__ void push(const Copy& c, Issue&& issue) {
+#ifdef RING_DIAG_DELAY_NS
+        if (!holding) {
+            held = c;
+            holding = true;
+            return;
+        }
+        issue(c);
+        flush(issue);
+#else
+        issue(c);
+#endif
+    }
+
+    // issue what is held: before the producer waits on anything but the
+    // next item's stage, and at its end
+    template <class Issue>
+    __device__ void flush(Issue&& issue) {
+#ifdef RING_DIAG_DELAY_NS
+        if (!holding) return;
+        const uint64_t t0 = globaltimer_ns();
+        while (globaltimer_ns() - t0 < (uint64_t)(RING_DIAG_DELAY_NS)) {
+        }
+        issue(held);
+        holding = false;
+#endif
+    }
+};
+
+#ifdef RING_DIAG
+// The diagnostic build's record, in mapped host memory (readable after the
+// launch trapped and the context is lost): record 0 is the first consumer
+// wait that returned before its item was filled, record 1 the first wait
+// that timed out. Fields: set (1), block, thread, site (ring_site), parity,
+// ring item, work item, the item the stage held (record 0; -1 in record
+// 1). g_ring_events counts each kind.
+constexpr int RING_DIAG_FIELDS = 8;
+__device__ volatile long long* g_ring_diag;
+__device__ unsigned long long g_ring_events[2];
+
+__device__ void ring_diag_note(int which, uint32_t parity, int site, int item, int work,
+                               long long seen) {
+    if (atomicAdd(&g_ring_events[which], 1ull) != 0 || g_ring_diag == nullptr) return;
+    volatile long long* r = g_ring_diag + which * RING_DIAG_FIELDS;
+    r[1] = blockIdx.x;
+    r[2] = threadIdx.x;
+    r[3] = site;
+    r[4] = parity;
+    r[5] = item;
+    r[6] = work;
+    r[7] = seen;
+    __threadfence_system();
+    r[0] = 1;
+    __threadfence_system();
+}
+#endif
+
+// ---------------------------------------------------------------------------
 // host side: TMA tensor maps, encoded per launch
 
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
@@ -396,3 +607,33 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint6
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
                   == CUDA_SUCCESS;
 }
+
+#ifdef RING_DIAG
+// host: arm the diagnostic record (mapped host memory, allocated once,
+// cleared) and clear the counts; returns the record's host address, or
+// null on a CUDA error. Its 2 x RING_DIAG_FIELDS values stay readable after
+// a launch traps.
+extern "C" void* ring_diag_arm() {
+    static long long* host = nullptr;
+    const size_t bytes = 2 * RING_DIAG_FIELDS * sizeof(long long);
+    if (host == nullptr
+        && cudaHostAlloc(reinterpret_cast<void**>(&host), bytes, cudaHostAllocMapped) != cudaSuccess) {
+        host = nullptr;
+        return nullptr;
+    }
+    for (int i = 0; i < 2 * RING_DIAG_FIELDS; ++i) host[i] = 0;
+    long long* dev = nullptr;
+    const unsigned long long zero[2] = {0, 0};
+    if (cudaHostGetDevicePointer(reinterpret_cast<void**>(&dev), host, 0) != cudaSuccess
+        || cudaMemcpyToSymbol(g_ring_diag, &dev, sizeof(dev)) != cudaSuccess
+        || cudaMemcpyToSymbol(g_ring_events, zero, sizeof(zero)) != cudaSuccess)
+        return nullptr;
+    return host;
+}
+
+// host: the counts of both kinds of event since ring_diag_arm; returns the
+// CUDA error of the copy
+extern "C" int ring_diag_events(unsigned long long* out) {
+    return cudaMemcpyFromSymbol(out, g_ring_events, sizeof(g_ring_events));
+}
+#endif

@@ -43,7 +43,19 @@
 //   (B of a key tile and x of the heads, by TMA: x through a 4-d map over
 //   (P, H, S, Bb), boxes of 64 steps x 64 columns, out-of-range columns
 //   read as zeros) and the C tile of each query tile (its own full / empty
-//   mbarriers). In a y item the two consumers split the key tiles u <= t:
+//   mbarriers). Both are Rings (ptx.cuh), which keep the barriers' contract:
+//   a wait names only its barrier's current phase or the one before it.
+//   Each key tile of the ring is for one consumer warpgroup (tile u of a y
+//   item for warpgroup u % 2, the pair (tile, head j) of a state item for
+//   warpgroup j % 2), which waits on that stage's full barrier of its own;
+//   a warpgroup takes its tiles in ring order (u, then j, ascending within
+//   an item; items in walk order), which is all the proof in ptx.cuh asks.
+//   The C tile is for both warpgroups and each waits for every one, in
+//   order. (A stage's consecutive tiles go to different warpgroups, so with
+//   one full barrier a stage a warpgroup could wait a phase ahead and pass
+//   before its copy landed: a wrong y or a trap in a few hundred launches;
+//   tools/kernel_stress.py --diag --shared-full records such a wait.)
+//   In a y item the two consumers split the key tiles u <= t:
 //     1. scores C_t B_u^T: wgmma m64n64k16 over N, C and B K-major;
 //     2. per head, W = scores o exp(cum_t - cum_u) on u <= t, split into
 //        bf16 high and low parts in registers, each 16-key group's W
@@ -743,7 +755,8 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
         int Bb, int S, int H, int P, int N, int L) {
     constexpr int BOX = WG_BOX, STAGES = WG_STAGES, STAGE_BYTES = ScanWg<HG>::STAGE_BYTES;
     extern __shared__ unsigned char smem_raw[];
-    __shared__ __align__(8) uint64_t bars[2 * STAGES + 2];
+    __shared__ Ring<STAGES, 2, 0> kring;   // key tiles, each for one consumer warpgroup
+    __shared__ Ring<1, 1, 1> cring;         // C of the query tile, for both
     __shared__ float warp_sum[2][4];
     const int n_chunks = (S + L - 1) / L;
     unsigned char* cq = align_1024(smem_raw);               // C rows of the query tile
@@ -753,10 +766,6 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
     float* cum = reinterpret_cast<float*>(hsplit + (n_chunks > 1 ? 4 * BOX : 0));  // HG x MAXL
     float* ein = cum + HG * MAXL;                            // exp(cum_t)
     float* eout = ein + HG * MAXL;                           // exp(cum_L - cum_u), 0 past L
-    uint64_t* full = bars;
-    uint64_t* empty = bars + STAGES;
-    uint64_t* cfull = bars + 2 * STAGES;
-    uint64_t* cempty = cfull + 1;
 
     // work items, walked by the persistent blocks (w = blockIdx.x, + gridDim.x,
     // ..): per (batch, head group), the state's columns of each box of B
@@ -777,12 +786,8 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
     };
 
     if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(&full[s], 1);
-            mbar_init(&empty[s], 128);
-        }
-        mbar_init(cfull, 1);
-        mbar_init(cempty, 256);
+        kring.init(128);
+        cring.init(256);
         mbar_init_fence();
     }
     __syncthreads();
@@ -790,40 +795,48 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
     if (threadIdx.x >= 256) {   // the producer warpgroup: one thread issues every copy
         reg_dealloc<ScanWg<HG>::PRODUCER_REGS>();
         if (threadIdx.x == 256) {
-            int item = 0, cl = 0;   // ring stages and C tiles filled so far
+            // the copies of key tile u of the chunk at c0 into stage s, reported
+            // to bar: B's boxes bx0 .. bx0 + nb - 1, and x of heads h0 + j0 ..
+            // h0 + j1 - 1 (head j in x slot j - j0) of batch b
+            struct Copy {
+                uint64_t* bar;
+                int s, c0, u, nb, j0, j1, bx0, b, h0;
+            };
+            auto issue = [&](const Copy& k) {
+                unsigned char* st = ring + k.s * STAGE_BYTES;
+                for (int bx = k.bx0; bx < k.bx0 + k.nb; ++bx)
+                    tma_load_3d(st + bx * BOX, &bmap, k.bar, 64 * bx, k.c0 + 64 * k.u, k.b);
+                for (int j = k.j0; j < k.j1; ++j)
+                    tma_load_4d(st + (2 + j - k.j0) * BOX, &xmap, k.bar, 0, k.h0 + j,
+                                k.c0 + 64 * k.u, k.b);
+            };
+            HeldCopy<Copy> copies;
+            int item = 0, cl = 0;   // key tiles and C tiles filled so far
             for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
                 const Work it = work(w);
-                // key tile u of the chunk at c0 into the next stage of the ring:
-                // B's boxes bx0 .. bx0 + nb - 1, and x of heads j0 .. j1 - 1
-                // (head j in x slot j - j0)
-                auto push = [&](int c0, int u, int nb, int j0, int j1) {
-                    const int s = item % STAGES;
-                    if (item >= STAGES) mbar_wait(&empty[s], ((item / STAGES) - 1) & 1);
-                    mbar_expect_tx(&full[s], (nb + j1 - j0) * BOX);
-                    unsigned char* st = ring + s * STAGE_BYTES;
-                    for (int bx = it.bx0; bx < it.bx0 + nb; ++bx)
-                        tma_load_3d(st + bx * BOX, &bmap, &full[s], 64 * bx, c0 + 64 * u, it.b);
-                    for (int j = j0; j < j1; ++j)
-                        tma_load_4d(st + (2 + j - j0) * BOX, &xmap, &full[s], 0, it.h0 + j,
-                                    c0 + 64 * u, it.b);
+                // the next item of the key-tile ring, for consumer warpgroup wg
+                auto push = [&](int c0, int u, int nb, int j0, int j1, int wg) {
+                    uint64_t* bar = kring.fill(item, wg, (nb + j1 - j0) * BOX, w);
+                    copies.push(Copy{bar, item % STAGES, c0, u, nb, j0, j1, it.bx0, it.b, it.h0},
+                                issue);
                     ++item;
                 };
                 for (int c = 0; c < n_chunks; ++c) {
                     const int c0 = c * L;
                     if (it.ytile) {
-                        if (cl > 0) mbar_wait(cempty, (cl - 1) & 1);
-                        mbar_expect_tx(cfull, nbox * BOX);
+                        copies.flush(issue);
+                        uint64_t* bar = cring.fill(cl, 0, nbox * BOX, w);
                         for (int bx = 0; bx < nbox; ++bx)
-                            tma_load_3d(cq + bx * BOX, &cmap, cfull, 64 * bx, c0 + 64 * it.job,
-                                        it.b);
+                            tma_load_3d(cq + bx * BOX, &cmap, bar, 64 * bx, c0 + 64 * it.job, it.b);
                         ++cl;
-                        for (int u = 0; u <= it.job; ++u) push(c0, u, nbox, 0, HG);
+                        for (int u = 0; u <= it.job; ++u) push(c0, u, nbox, 0, HG, u & 1);
                     }
                     if (!it.ytile || c + 1 < n_chunks)   // the state: (key tile, head) pairs
                         for (int u = 0; u < nq; ++u)
-                            for (int j = 0; j < HG; ++j) push(c0, u, it.nbx, j, j + 1);
+                            for (int j = 0; j < HG; ++j) push(c0, u, it.nbx, j, j + 1, j & 1);
                 }
             }
+            copies.flush(issue);
         }
         return;
     }
@@ -835,7 +848,8 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
     const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
     const int r0 = 16 * warp + g;     // this thread's accumulator rows: r0 and r0 + 8
-    int item = 0, cl = 0;   // ring stages and C tiles consumed so far
+    int item = 0, cl = 0;   // key tiles and C tiles consumed so far
+    RingPhases kph = 0, cph = 0;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
         const Work it = work(w);
         const int job = it.job, b = it.b, h0 = it.h0, bx0 = it.bx0, nbx = it.nbx;
@@ -886,7 +900,7 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
                 for (int j = 0; j < HG; ++j)
 #pragma unroll
                     for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
-                mbar_wait(cfull, cl & 1);
+                cring.wait(cl, 0, cph, w);
                 if (c > 0 && wg == 0) {
                     // inter-chunk: exp(cum_t) (C_t h^T), h split into bf16 high and
                     // low parts in the 128-byte swizzle (n along a row), C exact
@@ -929,10 +943,9 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
                 }
 
                 for (int u = wg; u <= job; u += 2) {
-                    const int it = item + u;
-                    const int s = it % STAGES;
-                    mbar_wait(&full[s], (it / STAGES) & 1);
-                    const unsigned char* bs = ring + s * STAGE_BYTES;
+                    const int k = item + u;
+                    kring.wait(k, wg, kph, w);
+                    const unsigned char* bs = ring + (k % STAGES) * STAGE_BYTES;
                     // scores C_t B_u^T over N, once for every head of the block
                     float sc[32];
                     wgmma_fence();
@@ -949,10 +962,10 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
                     for (int j = 0; j < HG; ++j)
                         decayed_scores_times_x(acc[j], sc, cum + j * MAXL, tr, 64 * u,
                                                bs + (2 + j) * BOX, t4);
-                    mbar_arrive(&empty[s]);
+                    kring.release(k);
                 }
                 item += job + 1;
-                mbar_arrive(cempty);
+                cring.release(cl);
                 ++cl;
 
                 // warpgroup 1's partial y into warpgroup 0's, then y out
@@ -998,10 +1011,9 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
 #pragma unroll
                         for (int e = 0; e < 32; ++e) hacc[bi][e] = 0.f;
                     for (int u = 0; u < nq; ++u) {
-                        const int it = item + u * HG + j;
-                        const int s = it % STAGES;
-                        mbar_wait(&full[s], (it / STAGES) & 1);
-                        const unsigned char* bs = ring + s * STAGE_BYTES;
+                        const int k = item + u * HG + j;
+                        kring.wait(k, wg, kph, w);
+                        const unsigned char* bs = ring + (k % STAGES) * STAGE_BYTES;
                         const unsigned char* xs = bs + 2 * BOX;
                         uint32_t ah[2][4], al[2][4];
 #pragma unroll
@@ -1039,7 +1051,7 @@ __global__ void __launch_bounds__(ScanWg<HG>::THREADS, 1) ssd_scan_wgmma_kernel(
                         for (int bi = 0; bi < 2; ++bi) reg_fence(hacc[bi]);
                         reg_fence(ah[1]);
                         reg_fence(al[1]);
-                        mbar_arrive(&empty[s]);
+                        kring.release(k);
                     }
                     const float a_chunk = exp2f(cum[j * MAXL + L - 1]);
                     float* hp = ytile ? scratch + ((long long)(b * H + h0 + j) * nq + job) * P * N

@@ -25,7 +25,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 def test_entry_binds_once(monkeypatch):
     lib = types.SimpleNamespace(flash_attention_fwd=types.SimpleNamespace())
     loads = []
-    monkeypatch.setattr(build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(build, "load", lambda name, defines=(): loads.append(name) or lib)
     monkeypatch.setattr(build, "_bound", {})
     fn = build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES)
     assert build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES) is fn
@@ -44,3 +44,18 @@ def test_library_path_follows_the_shared_headers(monkeypatch, tmp_path):
     (tmp_path / "ptx.cuh").write_text((tmp_path / "ptx.cuh").read_text() + "\n// edited\n")
     after = {n: build.library_path(n) for n in before}
     assert all(after[n] != before[n] for n in before)
+
+
+def test_macro_variants_build_beside_the_main_library(monkeypatch, tmp_path):
+    """A build with ``-D`` macros (the rings' diagnostic build) gets a
+    library and a log of its own, keyed by the macros; the main build's
+    names do not change."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    main = build.library_path("ssd_scan")
+    diag = build.library_path("ssd_scan", ("RING_DIAG",))
+    delay = build.library_path("ssd_scan", ("RING_DIAG", "RING_DIAG_DELAY_NS=4000"))
+    assert len({main, diag, delay}) == 3
+    assert main.name.startswith("libssd_scan-") and diag.name.startswith("libssd_scan-")
+    assert build.log_path("ssd_scan") == tmp_path / "ssd_scan.log"
+    assert build.log_path("ssd_scan", ("RING_DIAG",)) != build.log_path("ssd_scan")
+    assert "-DRING_DIAG" in build._flags(("RING_DIAG",)) and build._flags() == build.FLAGS

@@ -33,7 +33,12 @@ group bitwise equal to the unsharded engine on the card, and expert-parallel
 MoE there within the reference's bounds (2e-4 output, 1e-3 load-balance).
 The model-parallel slice's: the sharded train step on a one-rank NCCL host
 mesh bitwise equal to the unsharded step on the card. The dry runs': a
-step's counts on the card equal the same step's on fake CUDA tensors."""
+step's counts on the card equal the same step's on fake CUDA tensors. The
+wgmma kernels' rings: 300 launches each of the diagnostic build with every
+other ring item's copies held back, clean and every output unchanged; and
+as its positive control, the rings as first written under the same delay,
+which must fail."""
+import subprocess
 import sys
 from pathlib import Path
 
@@ -337,6 +342,40 @@ def test_cuda_kernels_reject_what_they_do_not_take(cuda):
 def _leaves(tree):
     from repro_torch.training.optimizer import tree_leaves
     return tree_leaves(tree)
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention"])
+def test_cuda_wgmma_rings_hold_with_copies_held_back(cuda, kernel):
+    """The wgmma kernels' rings keep their barriers' contract (csrc/ptx.cuh)
+    when the producer holds every other item's copies back 4 us (the
+    diagnostic build of tools/kernel_stress.py --delay-ns): over the tool's
+    shapes (K3 at mamba2's widths, Bb 4 and 16; K2 at gemma-2b's heads, B 4
+    and B 1 at S 1024 with the key tiles split, B 16 not), no wait returns
+    before its item was filled or times out, no launch faults, and every
+    output is the first launch's, which is held against the plain version."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import kernel_stress
+    r = kernel_stress.stress(kernel, "wgmma", 300, seed=0,
+                             defines=kernel_stress.defines_for(delay_ns=4000))
+    assert (r["fault"], r["wrong"], r["early"], r["timeouts"]) == (None, None, 0, 0), r
+    assert r["launches"] == 300
+
+
+@pytest.mark.parametrize("kernel", ["ssd_scan", "flash_attention"])
+def test_cuda_held_back_copies_break_the_first_rings(cuda, kernel):
+    """The positive control of the test above: the rings as first written
+    (one full barrier a stage, waited for by the item's parity; the
+    diagnostic build's RING_DIAG_SHARED_FULL), under the same held-back
+    copies, fault, give a wrong output or record an early wait, and the
+    tool exits 3. So a clean run above shows the repair, not a delay that
+    misses the fault. In a subprocess: a fault leaves the CUDA context
+    unusable."""
+    tool = Path(__file__).resolve().parents[1] / "tools" / "kernel_stress.py"
+    r = subprocess.run([sys.executable, str(tool), kernel, "wgmma", "30", "0",
+                        "--delay-ns", "4000", "--shared-full"],
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 3, r.stdout + r.stderr
+    assert "RING_DIAG_SHARED_FULL]" in r.stdout, r.stdout
 
 
 def test_cuda_train_step_matches_cpu(cuda):
