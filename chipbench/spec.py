@@ -1,0 +1,82 @@
+"""Discovery: everything the harness runs is found by name in data files.
+
+- ``configs/<config>.json``: a model configuration (the source's sizes as
+  run, ``reduced``, ``assumed``, the deployment) with the port's
+  ``ModelConfig`` fields under ``model``;
+- ``mixes/<mix>.json``: a traffic mix's parameters, read by
+  :mod:`chipbench.traffic`;
+- ``cells/<cell>.json``: a cell, naming its config and mix and the load
+  (closed-loop clients) and the limits of its correctness check;
+- ``metrics/<metric>.py``: the reader of a per-layer metric
+  (``<name>.py``, or ``<base>.py`` for a metric ``<base>.<variant>``);
+- ``BENCHMARK.json`` at the checkout's root: which end-to-end and
+  per-layer metrics each cell reports.
+
+A later change adds a configuration, mix, metric or cell by adding files
+(and entries in ``BENCHMARK.json``); no file here names one.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parent
+
+
+def _load(kind: str, name: str, base: Path = HERE) -> dict:
+    path = base / kind / f"{name}.json"
+    if not path.is_file():
+        have = sorted(p.stem for p in (base / kind).glob("*.json"))
+        raise FileNotFoundError(f"no {kind[:-1]} {name!r} (have {have})")
+    return json.loads(path.read_text())
+
+
+def load_cell(name: str, base: Path = HERE) -> dict:
+    """The cell ``name`` with its ``config`` and ``mix`` dicts resolved."""
+    cell = _load("cells", name, base)
+    cell["name"] = name
+    cell["config_data"] = _load("configs", cell["config"], base)
+    cell["mix_data"] = _load("mixes", cell["mix"], base)
+    return cell
+
+
+def names(kind: str, base: Path = HERE) -> list[str]:
+    return sorted(p.stem for p in (base / kind).glob("*.json"))
+
+
+def manifest(root: Path = ROOT) -> dict:
+    path = root / "BENCHMARK.json"
+    return json.loads(path.read_text()) if path.is_file() else {}
+
+
+def _reported(metric: dict, cell: str, e2e: set) -> bool:
+    if "workloads" in metric:
+        return cell in metric["workloads"]
+    return metric.get("moves", None) in e2e if "moves" in metric else True
+
+
+def cell_metrics(cell: str, default_e2e: list[str], root: Path = ROOT) -> tuple[list, list]:
+    """(end-to-end names, per-layer names) the cell reports by ``BENCHMARK.json``;
+    a cell it does not list reports ``default_e2e`` (what its traffic yields)
+    and no per-layer metric."""
+    man = manifest(root)
+    if cell not in {w["name"] for w in man.get("workloads", [])}:
+        return list(default_e2e), []
+    e2e = [m["name"] for m in man["end_to_end"] if _reported(m, cell, set())]
+    layer = [m["name"] for m in man["per_layer"] if _reported(m, cell, set(e2e))]
+    return e2e, layer
+
+
+def reader(metric: str, base: Path = HERE):
+    """The reader module of a per-layer metric: ``metrics/<name>.py``, else
+    ``metrics/<base>.py`` for ``<base>.<variant>``."""
+    for stem in (metric, metric.split(".")[0]):
+        path = base / "metrics" / f"{stem}.py"
+        if path.is_file():
+            spec = importlib.util.spec_from_file_location(f"chipbench_metric_{stem}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+    raise FileNotFoundError(f"no reader for per-layer metric {metric!r}")
