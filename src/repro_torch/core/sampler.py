@@ -2,7 +2,7 @@
 
 The counterpart of ``repro.core.sampler``. Public API:
 
-  ``sample(plan, eps_fn, x_T, key=None, *, hooks=None, tracer=None, noise=None)``
+  ``sample(plan, eps_fn, x_T, key=None, *, hooks=None, tracer=NULL_TRACER, noise=None)``
       Run the full fixed-step solve; returns ``x_0`` (or ``(x_0,
       trajectory)`` when ``hooks.record_trajectory`` is set).
 
@@ -43,7 +43,6 @@ with the device.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional
@@ -53,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.ops import fused_ab_step as _fused_ab_step
+from ..obs.trace import NULL_TRACER
 from .plan import SolverPlan, _row_index, place_plan
 
 Tensor = torch.Tensor
@@ -625,7 +625,7 @@ def _step_on_mesh(plan, k, state, eps_fn, hooks, noise, mesh) -> SamplerState:
 
 
 def sample(plan: SolverPlan, eps_fn: EpsFn, x_T: Tensor, key=None, *,
-           hooks: Optional[Hooks] = None, tracer=None, noise=None, mesh=None):
+           hooks: Optional[Hooks] = None, tracer=NULL_TRACER, noise=None, mesh=None):
     """Run the full solve from ``x_T`` at ``ts[0]`` down to ``ts[-1]``.
 
     Returns ``x_0``, or ``(x_0, trajectory)`` if ``hooks.record_trajectory``.
@@ -649,14 +649,12 @@ def sample(plan: SolverPlan, eps_fn: EpsFn, x_T: Tensor, key=None, *,
         sharded = _row_mesh(state_sh)
         if sharded is not None:
             plan, state = place_plan(plan, plan_sh), place_state(state, state_sh)
-    span = (tracer.span if tracer is not None
-            else lambda _name: contextlib.nullcontext())
     traj = []
     for k in range(plan.n_steps):
         nz = None if noise is None else noise[k]
         if nz is not None and sharded is not None:
             nz = _local_rows(nz, sharded, n_rows)
-        with span("sample.step"):
+        with tracer.span("sample.step"):
             state = step(plan, k, state, eps_fn, hooks=hooks, noise=nz)
         if hooks.record_trajectory:
             traj.append(state.x)

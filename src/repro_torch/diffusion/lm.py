@@ -26,6 +26,7 @@ from ..configs.base import ModelConfig
 from ..core import sampler as SAMPLER
 from ..core.plan import SolverPlan
 from ..models import transformer as T
+from ..obs.trace import NULL_TRACER
 from ..sharding import tensor_parallel as TP
 
 X0_SCALE = 25.0    # x0 = embed * X0_SCALE so data std ~ 0.5
@@ -109,7 +110,7 @@ def diffusion_loss(params, cfg: ModelConfig, sde, tokens, gen=None, *, prefix=No
 
 
 def make_eps_fn(params, cfg: ModelConfig, *, prefix=None, frames=None,
-                valid_len=None, use_kernels: bool = False):
+                valid_len=None, use_kernels: bool = False, tracer=NULL_TRACER):
     """eps_theta(x, t) closure for the DEIS solvers; x: (B, S, D), t scalar
     or (B,). Computes the eps head only (no vocabulary logits).
 
@@ -121,18 +122,21 @@ def make_eps_fn(params, cfg: ModelConfig, *, prefix=None, frames=None,
     int per-row true length for bucket-padded batches, threaded to
     attention so a row's trajectory does not depend on the bucket's tail
     padding. ``use_kernels``: self-attention through kernel K2 (which
-    refuses ``valid_len``) and the Mamba2 scan through K3."""
+    refuses ``valid_len``) and the Mamba2 scan through K3. ``tracer``: each
+    evaluation is an ``eps`` span, the layers' spans nested in it
+    (:func:`repro_torch.models.transformer.forward`)."""
     vlm = cfg.arch_type == "vlm" and prefix is not None
     p = prefix.shape[1] if vlm else 0
 
     def eps_fn(x, t):
-        t_b = t.to(torch.float32).expand(x.shape[0])
-        xin = torch.cat([prefix.to(x.dtype), x], dim=1) if vlm else x
-        vl = valid_len + p if (vlm and valid_len is not None) else valid_len
-        out = T.forward(params, cfg, embeds=xin, t_cond=t_b, causal=False,
-                        frames=frames, valid_len=vl, logits=False,
-                        use_kernels=use_kernels)
-        return out["eps"][:, p:].to(x.dtype)
+        with tracer.span("eps"):
+            t_b = t.to(torch.float32).expand(x.shape[0])
+            xin = torch.cat([prefix.to(x.dtype), x], dim=1) if vlm else x
+            vl = valid_len + p if (vlm and valid_len is not None) else valid_len
+            out = T.forward(params, cfg, embeds=xin, t_cond=t_b, causal=False,
+                            frames=frames, valid_len=vl, logits=False,
+                            use_kernels=use_kernels, tracer=tracer)
+            return out["eps"][:, p:].to(x.dtype)
     return eps_fn
 
 
@@ -148,7 +152,7 @@ def decode_tokens(params, cfg: ModelConfig, x0):
 def sample_tokens(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
                   batch: int, seq_len: int, prior_std: float, prefix=None,
                   frames=None, use_kernels: bool = False, hooks=None, x_T=None,
-                  noise=None):
+                  noise=None, tracer=NULL_TRACER):
     """Generate a batch of token sequences with one (unstacked) DEIS plan in
     one call, on the parameters' device. Returns ``(tokens, x0)``.
 
@@ -164,17 +168,28 @@ def sample_tokens(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
     frameworks the same numbers; ``gens`` may then be None. ``prefix``
     (vlm) and ``frames`` (encdec) condition every evaluation
     (:func:`make_eps_fn`); the prior and x0 cover the ``seq_len`` text
-    positions only."""
-    device = params["embed"].device
-    plan = plan.to(device)
-    g_prior, g_solve = gens if gens is not None else (None, None)
-    if x_T is None:
-        x_T = torch.randn((batch, seq_len, cfg.d_model), generator=g_prior,
-                          device=device, dtype=torch.float32) * prior_std
-    eps_fn = make_eps_fn(params, cfg, prefix=prefix, frames=frames,
-                         use_kernels=use_kernels)
-    x0 = SAMPLER.sample(plan, eps_fn, x_T, g_solve, hooks=hooks, noise=noise)
-    return decode_tokens(params, cfg, x0), x0
+    positions only.
+
+    ``tracer`` (a :class:`repro_torch.obs.trace.Tracer`) times the call as
+    a ``sample_tokens`` span holding the sampler's ``sample.step`` spans
+    and a ``decode`` span (``docs/observability.md`` gives the tree); with
+    ``annotate=True`` each span is also a ``torch.profiler`` range. The
+    default, ``NULL_TRACER``, records nothing, and what is computed is the
+    same either way."""
+    with tracer.span("sample_tokens"):
+        device = params["embed"].device
+        plan = plan.to(device)
+        g_prior, g_solve = gens if gens is not None else (None, None)
+        if x_T is None:
+            x_T = torch.randn((batch, seq_len, cfg.d_model), generator=g_prior,
+                              device=device, dtype=torch.float32) * prior_std
+        eps_fn = make_eps_fn(params, cfg, prefix=prefix, frames=frames,
+                             use_kernels=use_kernels, tracer=tracer)
+        x0 = SAMPLER.sample(plan, eps_fn, x_T, g_solve, hooks=hooks, noise=noise,
+                            tracer=tracer)
+        with tracer.span("decode"):
+            tokens = decode_tokens(params, cfg, x0)
+        return tokens, x0
 
 
 def request_generators(seeds, device) -> list:

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..obs.trace import NULL_TRACER
 from ..sharding import tensor_parallel as TP
 
 
@@ -140,7 +141,8 @@ def ssd_chunked(x, a, B, C, chunk: int):
     return (y_intra + y_inter).reshape(bsz, s, h, p), state
 
 
-def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = False):
+def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = False,
+                tracer=NULL_TRACER):
     """The full Mamba2 mixer. x: (B, S, D).
 
     cache: None (a full sequence: training, prefill, the eps-net) or
@@ -148,50 +150,63 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     update (S must be 1): ``state = state * a + B x^T``, ``y = C state`` in
     float32. ``use_kernels`` routes a full sequence's scan through kernel
     K3 (the reference's ``use_pallas``); otherwise :func:`ssd_chunked` runs
-    it. Returns ``(out, {"conv", "state"})`` like the reference."""
+    it. Returns ``(out, {"conv", "state"})`` like the reference.
+
+    ``tracer``: five spans in turn, ``in_proj``; ``pre`` (the decay, the
+    causal convolution, the split, K3's contiguous operands); ``scan`` (K3,
+    :func:`ssd_chunked` or the decode update alone); ``post`` (the D skip,
+    the gated RMS norm, the cast); ``out_proj``."""
     bsz, s, _ = x.shape
     scfg = cfg.ssm
     d_inner, n_heads = ssm_dims(cfg)
     n, p = scfg.state_dim, scfg.head_dim
     f32 = torch.float32
 
-    zxbcdt, split = TP.linear(x, params["in_proj"])
-    z, xbc, dt = _split_proj(cfg, TP.whole(zxbcdt, split, params["in_proj"]))
-    dt = F.softplus(dt.to(f32) + params["dt_bias"])          # (B, S, H)
-    a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
+    with tracer.span("in_proj"):
+        zxbcdt, split = TP.linear(x, params["in_proj"])
+        z, xbc, dt = _split_proj(cfg, TP.whole(zxbcdt, split, params["in_proj"]))
+    with tracer.span("pre"):
+        dt = F.softplus(dt.to(f32) + params["dt_bias"])          # (B, S, H)
+        a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
 
-    conv = TP.split_of(params["conv_w"])
-    if conv is not None and use_kernels:
-        raise ValueError("the mixer on a mesh runs on the plain route: no kernel")
-    channels = conv is not None and conv.dim is not None
-    if channels:
-        xbc = TP.split_model(xbc, -1, conv.ax)
-    xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                   state=None if cache is None else cache["conv"])
-    if channels:
-        xbc = TP.gather_model(xbc, -1, conv.ax)
-    xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
-    xh = xs.reshape(bsz, s, n_heads, p)
-    if cache is not None:
-        if s != 1:
-            raise ValueError(f"the SSM decode cache takes one token at a time, got {s}")
-        st = cache["state"] * a[:, 0, :, None, None] + torch.einsum(
-            "bn,bhp->bhpn", B[:, 0].to(f32), xh[:, 0].to(f32))
-        y = torch.einsum("bn,bhpn->bhp", C[:, 0].to(f32), st)[:, None]
-        state = st
-    else:
-        chunk = min(scfg.chunk_size, s)
-        if use_kernels:
-            y, state = ops.ssd_scan(xh.contiguous(), a.contiguous(), B.contiguous(),
-                                    C.contiguous(), chunk=chunk)
+        conv = TP.split_of(params["conv_w"])
+        if conv is not None and use_kernels:
+            raise ValueError("the mixer on a mesh runs on the plain route: no kernel")
+        channels = conv is not None and conv.dim is not None
+        if channels:
+            xbc = TP.split_model(xbc, -1, conv.ax)
+        xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                       state=None if cache is None else cache["conv"])
+        if channels:
+            xbc = TP.gather_model(xbc, -1, conv.ax)
+        xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
+        xh = xs.reshape(bsz, s, n_heads, p)
+        if cache is None and use_kernels:
+            k3_in = (xh.contiguous(), a.contiguous(), B.contiguous(), C.contiguous())
+    with tracer.span("scan"):
+        if cache is not None:
+            if s != 1:
+                raise ValueError(f"the SSM decode cache takes one token at a time, got {s}")
+            st = cache["state"] * a[:, 0, :, None, None] + torch.einsum(
+                "bn,bhp->bhpn", B[:, 0].to(f32), xh[:, 0].to(f32))
+            y = torch.einsum("bn,bhpn->bhp", C[:, 0].to(f32), st)[:, None]
+            state = st
         else:
-            y, state = ssd_chunked(xh, a, B, C, chunk=chunk)
+            chunk = min(scfg.chunk_size, s)
+            if use_kernels:
+                y, state = ops.ssd_scan(*k3_in, chunk=chunk)
+                del k3_in
+            else:
+                y, state = ssd_chunked(xh, a, B, C, chunk=chunk)
 
-    y = y + params["D"][None, None, :, None] * xh.to(f32)
-    y = y.reshape(bsz, s, d_inner)
-    # gated RMS norm (mamba2)
-    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    y = y * (1.0 + params["norm_scale"].to(f32))
-    y = y * F.silu(z.to(f32))
-    out, _ = TP.linear(y.to(x.dtype), params["out_proj"])
+    with tracer.span("post"):
+        y = y + params["D"][None, None, :, None] * xh.to(f32)
+        y = y.reshape(bsz, s, d_inner)
+        # gated RMS norm (mamba2)
+        y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
+        y = y * (1.0 + params["norm_scale"].to(f32))
+        y = y * F.silu(z.to(f32))
+        y = y.to(x.dtype)
+    with tracer.span("out_proj"):
+        out, _ = TP.linear(y, params["out_proj"])
     return out, {"conv": conv_state, "state": state}

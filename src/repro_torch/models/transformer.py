@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..obs.trace import NULL_TRACER
 from ..sharding import tensor_parallel as TP
 from . import layers as L
 from . import ssm as S
@@ -248,7 +249,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
 def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
                  causal, cache=None, cache_index=None, cross=None,
                  collect_kv=False, valid_len=None, use_kernels=False,
-                 sharded=False, cross_out=None):
+                 sharded=False, cross_out=None, tracer=NULL_TRACER):
     """Layer ``i`` (the reference's ``_apply_block`` for one slot): the
     mixer and its residual; for a decoder layer of an encdec arch, given
     ``cross`` (its ``{"k", "v"}``), ``norm_x`` and cross-attention with its
@@ -259,7 +260,13 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
     here, just before the layer runs (see ``forward``), and a ``cross``
     that is the encoder's output (a tensor, not a ``{"k", "v"}`` dict) is
     projected here with the placed ``cross`` weights; ``cross_out``, a
-    list, then receives the projection (prefill's cross cache)."""
+    list, then receives the projection (prefill's cross cache).
+
+    ``tracer``: spans named by the layer's parts, without its index:
+    ``layer.norm`` (each RMS norm), ``layer.ssm`` or ``layer.attn`` (the
+    mixer and its residual; the SSM mixer's own parts nest in it, see
+    :func:`repro_torch.models.ssm.ssm_forward`), ``layer.cross`` and
+    ``layer.mlp`` or ``layer.moe``."""
     mixer, mlpk = _layer_kind(cfg, i)
     if sharded:
         bp = TP.place_tree(bp)
@@ -267,28 +274,37 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
             cross = _cross_kv(cfg, bp, cross)
             if cross_out is not None:
                 cross_out.append(cross)
-    hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
+    with tracer.span("layer.norm"):
+        hn = L.rms_norm(h, bp["norm1"], cfg.norm_eps)
     if mixer == "ssm":
-        out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=cache,
-                                use_kernels=use_kernels)
-    else:
-        out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
-                              cache=cache, cache_index=cache_index,
-                              return_kv=collect_kv, valid_len=valid_len,
-                              use_kernels=use_kernels)
-    h = h + out
-    if cross is not None:
-        hx = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
-        out, _ = L.attention(bp["cross"], cfg, hx, positions, causal=False,
-                             kv_override=(cross["k"], cross["v"], cross.get("k0", 0)))
-        h = h + out
-    if mlpk != "none":
-        hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
-        if mlpk == "dense":
-            h = h + L.mlp(bp["mlp"], cfg, hn)
-        else:
-            out, moe_aux = L.moe(bp["moe"], cfg, hn)
+        with tracer.span("layer.ssm"):
+            out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=cache,
+                                    use_kernels=use_kernels, tracer=tracer)
             h = h + out
+    else:
+        with tracer.span("layer.attn"):
+            out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
+                                  cache=cache, cache_index=cache_index,
+                                  return_kv=collect_kv, valid_len=valid_len,
+                                  use_kernels=use_kernels)
+            h = h + out
+    if cross is not None:
+        with tracer.span("layer.norm"):
+            hx = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
+        with tracer.span("layer.cross"):
+            out, _ = L.attention(bp["cross"], cfg, hx, positions, causal=False,
+                                 kv_override=(cross["k"], cross["v"], cross.get("k0", 0)))
+            h = h + out
+    if mlpk != "none":
+        with tracer.span("layer.norm"):
+            hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
+        if mlpk == "dense":
+            with tracer.span("layer.mlp"):
+                h = h + L.mlp(bp["mlp"], cfg, hn)
+        else:
+            with tracer.span("layer.moe"):
+                out, moe_aux = L.moe(bp["moe"], cfg, hn)
+                h = h + out
             _add_aux(aux, moe_aux)
     return h, nc
 
@@ -333,7 +349,8 @@ def lm_head(params, cfg: ModelConfig, embed=None):
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
             frames=None, mode: str = "train", cache=None, cache_index=None,
             t_cond=None, causal: Optional[bool] = None, valid_len=None,
-            logits: bool = True, use_kernels: bool = False, remat: bool = False) -> dict:
+            logits: bool = True, use_kernels: bool = False, remat: bool = False,
+            tracer=NULL_TRACER) -> dict:
     """Forward over tokens (an embedding lookup) or continuous inputs.
     Returns a dict with ``hidden``, ``cache``, ``aux`` (the MoE layers'
     ``moe_lb`` and ``moe_z`` losses, each summed over the layers; empty
@@ -359,6 +376,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     through K3. remat: train mode only; each decoder layer runs under
     ``torch.utils.checkpoint`` (its activations are recomputed in the
     backward pass; the reference's ``jax.checkpoint`` of a scan block).
+    tracer: each decoder layer's spans (:func:`_apply_layer`; none under
+    remat), in whatever span the caller has open.
 
     On a mesh (DTensor parameters placed by the spec rules: the sharded
     steps) the inputs are this rank's rows of the batch, on the plain
@@ -443,7 +462,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
                                  cache_index=cache_index, cross=cross,
                                  collect_kv=collect_kv, valid_len=valid_len,
                                  use_kernels=use_kernels, sharded=sharded,
-                                 cross_out=new_cross)
+                                 cross_out=new_cross, tracer=tracer)
         if new_blocks is not None:
             new_blocks.append(nc if nc is not None else c)
 

@@ -1,27 +1,30 @@
-"""Nestable span timers for the serving stack's host-side phases (a copy of
+"""Nestable span timers for the port's host-side phases (a copy of
 ``repro.obs.trace`` that annotates ``torch.profiler`` traces).
 
 A :class:`Tracer` times named spans -- engine ticks, group-step dispatch,
-AOT compiles, join/compact boundary work -- and feeds each duration into a
-per-span-name histogram of a :class:`~repro.obs.metrics.MetricsRegistry`.
-Spans nest (``tick`` > ``admit`` > ``join``); the tracer keeps a thread-local
-stack so the recorded name is the dotted path of its ancestry, which is what
-``docs/observability.md`` documents as the span hierarchy.
+join/compact boundary work, the one-shot generator's phases down to the
+SSM mixer's parts -- and feeds each duration into a per-span-path histogram
+of a :class:`~repro_torch.obs.metrics.MetricsRegistry`. Spans nest
+(``sample_tokens`` > ``sample.step`` > ``eps``); the tracer keeps a
+thread-local stack so the recorded name is the dotted path of its
+ancestry, which is what ``docs/observability.md`` documents as the span
+hierarchy.
 
-Two hard rules, both about the jitted hot path:
+Two hard rules:
 
-* spans time HOST-side work only. A span around an executor call measures
-  dispatch (and whatever the caller chooses to block on), never forces a
-  device sync itself -- there is no ``block_until_ready`` anywhere in this
-  module.
+* spans time HOST-side work only. Kernels are launched asynchronously, so
+  a span around a launch measures the launch; no span synchronises with
+  the device or records a CUDA event.
 * with ``annotate=True`` each span also enters a
-  ``torch.profiler.record_function`` range, so the same span names show up
-  beside the CUDA kernels in a ``torch.profiler`` trace. The range costs
-  next to nothing unless a profiler is recording; it adds no sync either.
+  ``torch.profiler.record_function`` range named by its path, so the spans
+  show up in a ``torch.profiler`` trace on the launching thread, and device
+  time can be put down to the span open at each kernel's launch. The range
+  adds no sync.
 
 ``NULL_TRACER`` is the disabled instance: its ``span()`` is a reusable
-no-op context manager, so instrumented code never branches on "is tracing
-on" -- it just always runs ``with tracer.span(...):``.
+no-op context manager (no ``record_function``, no allocation), so
+instrumented code never branches on "is tracing on" -- it just always runs
+``with tracer.span(...):``.
 """
 from __future__ import annotations
 
