@@ -8,9 +8,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Device: the card's name, count, ``nvidia-smi`` name and power limit;
    TF32 off for float32 matmuls and convolutions.
-2. Build: kernels K2 and K3 (CUDA C++, ``src/repro_torch/kernels/csrc``)
-   compiled by nvcc for sm_90a into ``build/kernels``, one nvcc per source,
-   started together. Each source holds four kernels, one per route: wgmma
+2. Build: kernels K2 and K3 and the SSM mixer's passes (CUDA C++,
+   ``src/repro_torch/kernels/csrc``) compiled by nvcc for sm_90a into
+   ``build/kernels``, one nvcc per source, started together. Each source holds four kernels, one per route: wgmma
    (bf16 that TMA can describe), mma_sync (other bf16), tf32x3 (float32
    with 16-byte aligned bases; K3: P and N multiples of 8) and cuda_cores
    (other float32). For every kernel, ptxas's registers and spills, and its
@@ -54,6 +54,16 @@ Phases (any failure raises and the script exits non-zero):
    kernels timed in turns beside the plain version and the bound (C B^T
    counted once per batch; float32 at 165 and 67 TFLOP/s; no single
    library call).
+5a. The SSM mixer's two pointwise passes (``phase_ssm_pointwise``,
+   ``kernels/ssm_pointwise.py``: ``ssm_conv_prep_kernel`` for ``pre``,
+   ``ssm_gated_norm_kernel`` for ``post``) on views of an in-projection
+   output at mamba2-2.7b's one-shot shape (Bb 16, S 256), jamba-1.5-large's
+   mixer widths, the reduced config, S < K - 1, S no multiple of the time
+   tile, K 1 and unaligned views, in float32 and bf16: ``pre`` within one
+   rounding of the same sums in float64 (bf16 rtol 2^-7, atol 1e-5;
+   float32 1e-5) and within the plain chain's own rounding error, its decay
+   at rtol 1e-5; ``post`` within one rounding of its plain version. Then
+   each kernel timed in turns beside its plain version and its byte bound.
 5b. Scaling (``phase_scaling``): the bf16 wgmma and mma_sync kernels in
    turns at B 4, 8, 16, 32 of gemma's and whisper's attention and Bb 4, 8,
    16 of mamba2's scan, each time beside B 4's.
@@ -284,6 +294,9 @@ ANALYSIS_CASES = {"rl001_bad.py": ("RL001", 11), "rl002_bad.py": ("RL002", 8),
 MMA_KERNELS = {"flash_attention": "flash_fwd_mma_kernel", "ssd_scan": "ssd_scan_mma_kernel"}
 WGMMA_KERNELS = {"flash_attention": "flash_fwd_wgmma_kernel", "ssd_scan": "ssd_scan_wgmma_kernel"}
 TF32_KERNELS = {"flash_attention": "flash_fwd_tf32x3_kernel", "ssd_scan": "ssd_scan_tf32x3_kernel"}
+# CUDA sources with no tensor-core work: their kernels (registers and spills
+# printed; ptxas spills a few bytes in some instances off the main paths)
+PLAIN_KERNELS = {"ssm_pointwise": ("ssm_conv_prep_kernel", "ssm_gated_norm_kernel")}
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")   # mma.sync, wgmma, TMA loads
 # each (kernel, route)'s CUDA function, as the profiler and cuobjdump name it
 KERNEL_NAMES = {("K2", "wgmma"): "flash_fwd_wgmma_kernel",
@@ -515,7 +528,8 @@ def _short(mangled):
     """flash_fwd_mma_kernel<256> from its mangled name."""
     m = re.search(r"(flash_fwd_wgmma_kernel|flash_fwd_mma_kernel|flash_fwd_tf32x3_kernel|"
                   r"flash_fwd_kernel|ssd_scan_wgmma_kernel|ssd_scan_mma_kernel|"
-                  r"ssd_scan_tf32x3_kernel|ssd_scan_kernel)(?:ILi(\d+)E)?",
+                  r"ssd_scan_tf32x3_kernel|ssd_scan_kernel|ssm_conv_prep_kernel|"
+                  r"ssm_gated_norm_kernel)(?:ILi(\d+)E)?",
                   mangled)
     return (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else mangled
 
@@ -531,7 +545,7 @@ def phase_build(device):
         return {}
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    paths = build.build(list(MMA_KERNELS))
+    paths = build.build(list(MMA_KERNELS) + list(PLAIN_KERNELS))
     print(f"build: {', '.join(str(p.relative_to(p.parents[2])) for p in paths.values())} "
           f"in {time.perf_counter() - t0:.1f} s (nvcc for sm_90a, one process per source)")
     out, faults = {}, []
@@ -545,11 +559,17 @@ def phase_build(device):
             out[_short(fn)] = [*r, count]
             print(f"  {name}: {_short(fn)}: {r[0]} registers, spill stores {r[1]} B, "
                   f"spill loads {r[2]} B; SASS: " + ", ".join(f"{op} {n}" for op, n in count.items()))
+            if name in PLAIN_KERNELS:        # no tensor-core work: printed, not held
+                continue
             need = (("HMMA",) if MMA_KERNELS[name] in fn or TF32_KERNELS[name] in fn else
                     ("HGMMA", "UTMALDG") if WGMMA_KERNELS[name] in fn else ())
             if need and (any(count[op] == 0 for op in need) or r[1] or r[2]):
                 faults.append(f"{_short(fn)}: {count}, spills {r[1]}/{r[2]} B (needs "
                               f"{', '.join(need)} and no spills)")
+        if name in PLAIN_KERNELS:
+            if not all(any(k in fn for fn in ops) for k in PLAIN_KERNELS[name]):
+                faults.append(f"{name}: not every one of {PLAIN_KERNELS[name]} was built")
+            continue
         for kind in (MMA_KERNELS, WGMMA_KERNELS, TF32_KERNELS):
             if not any(kind[name] in fn for fn in ops):
                 faults.append(f"{name}: no {kind[name]} in the built library")
@@ -852,6 +872,113 @@ def phase_k3(device):
         for r in kernels:
             out[r] = dict(row, max_abs_err=max_err[r], ms=t[r], plain_ms=t["plain"],
                           library_ms=None)
+    return out
+
+
+# the SSM mixer's passes: (Bb, S, H, P, N, K, extra columns of the in-projection,
+# which make its row stride no multiple of 16 bytes: one-element accesses)
+PW_CASES = [(16, 256, 80, 64, 128, 4, 0),    # mamba2-2.7b's one-shot shape
+            (2, 48, 256, 64, 128, 4, 0),     # jamba-1.5-large's mixer widths
+            (2, 40, 32, 16, 16, 4, 0),       # the reduced config
+            (3, 2, 32, 16, 16, 4, 0),        # S < K - 1
+            (2, 37, 8, 64, 128, 4, 1),       # S no multiple of the time tile, unaligned
+            (2, 19, 5, 16, 16, 1, 3),        # K 1, unaligned
+            (16, 256, 80, 64, 128, 4, 1)]    # the one-shot shape, unaligned
+
+
+def _pw_inputs(device, b, s, h, p, n, k, extra, dtype, seed=29):
+    """Views z, xBC, dt of an in-projection output drawn from a seed, and the
+    mixer's parameters with y and xh for the norm."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *sh: torch.randn(sh, generator=gen, device=device)
+    d_inner, c = h * p, h * p + 2 * n
+    zx = r(b, s, d_inner + c + h + extra).to(dtype)
+    z, xbc, dt = zx[..., :d_inner], zx[..., d_inner:d_inner + c], zx[..., d_inner + c:][..., :h]
+    prm = dict(conv_w=(r(k, c) * 0.3).to(dtype), conv_b=(r(c) * 0.1).to(dtype),
+               dt_bias=r(h), A_log=r(h) * 0.5, D=r(h), scale=(r(d_inner) * 0.1).to(dtype))
+    y, xh = r(b, s, h, p).to(dtype), r(b, s, h, p).to(dtype)
+    return z, xbc, dt, prm, y, xh
+
+
+def phase_ssm_pointwise(device):
+    """The SSM mixer's two passes (``ssm_conv_prep_kernel``,
+    ``ssm_gated_norm_kernel``) against their plain versions over
+    ``PW_CASES`` in float32 and bf16, on views of an in-projection output.
+    ``pre``: xh, B and C within one rounding of the same sums in float64
+    (bf16 rtol 2^-7, atol 1e-5; float32 1e-5), a within rtol 1e-5, and the
+    largest difference from the plain chain (which rounds each product and
+    sum) printed; ``post``: within one rounding of the plain version (same
+    tolerances). Each launch counted. Then at mamba2-2.7b's one-shot shape in
+    bf16, in turns, each kernel and its plain version beside the byte bound.
+    Returns {"pre": numbers, "post": numbers}."""
+    from repro_torch.kernels import ssm_pointwise as SP
+    F = torch.nn.functional
+    err = {"pre": 0.0, "pre_vs_chain": 0.0, "a": 0.0, "post": 0.0}
+    # the cpu rehearsal keeps to the small widths (plain versions against themselves)
+    cases = PW_CASES if device.type == "cuda" else [c for c in PW_CASES if c[2] * c[3] <= 512]
+    _reset_counts()
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == torch.bfloat16 else \
+            dict(rtol=1e-5, atol=1e-5)
+        for (b, s, h, p, n, k, extra) in cases:
+            z, xbc, dt, prm, y, xh_in = _pw_inputs(device, b, s, h, p, n, k, extra, dtype)
+            args = (prm["conv_w"], prm["conv_b"], prm["dt_bias"], prm["A_log"])
+            got = SP.conv_prep(xbc, dt, *args, head_dim=p)
+            want = SP.conv_prep_ref(xbc, dt, *args, head_dim=p)
+            xp = F.pad(xbc.double(), (0, 0, k - 1, 0))
+            taps = [xp[:, i:i + s] * prm["conv_w"][i].double() for i in range(k)]
+            exact = F.silu(sum(taps) + prm["conv_b"].double()).to(dtype)
+            flat = lambda ts: torch.cat([t.reshape(b, s, -1) for t in ts], -1)
+            if device.type == "cuda":       # on the cpu the plain chain stands in
+                torch.testing.assert_close(flat(got[:3]).float(), exact.float(), **tol)
+            # the plain chain rounds K products and K sums: within 1.1 (2K + 2) u
+            # (sum_i |w_i x_i| + |b|) + 2 u |exact| of the kernel, u the unit roundoff
+            u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+            bound = 1.1 * (2 * k + 2) * u * (sum(t.abs() for t in taps)
+                                               + prm["conv_b"].double().abs()) \
+                + 2 * u * exact.double().abs()
+            if not bool(((flat(got[:3]).double() - flat(want[:3]).double()).abs()
+                         <= bound).all()):
+                raise AssertionError(f"ssm pre {(b, s, h, p, n, k, extra)} {dtype}: beyond the "
+                                     "plain chain's rounding")
+            torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
+            out = SP.gated_norm(y, xh_in, z, prm["D"], prm["scale"], eps=1e-5)
+            out_w = SP.gated_norm_ref(y, xh_in, z, prm["D"], prm["scale"], 1e-5)
+            torch.testing.assert_close(out.float(), out_w.float(), **tol)
+            err["pre"] = max(err["pre"], _max_err(flat(got[:3]), exact))
+            err["pre_vs_chain"] = max(err["pre_vs_chain"], _max_err(flat(got[:3]),
+                                                                    flat(want[:3])))
+            err["a"] = max(err["a"], _max_err(got[3], want[3]))
+            err["post"] = max(err["post"], _max_err(out, out_w))
+            n_cases += 1
+    counts = _counts()
+    if device.type == "cuda" and (counts["ssm_pre"], counts["ssm_post"]) != (n_cases, n_cases):
+        raise AssertionError(f"ssm passes: launches {counts}, not {n_cases} each")
+    print(f"ssm passes check: {n_cases} cases (mamba2's one-shot shape, jamba's widths, the "
+          f"reduced config, S < K - 1, S 37, K 1, unaligned views; float32 and bf16): max abs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + f"; launches {counts}")
+
+    b, s, h, p, n, k, extra = PW_CASES[0] if device.type == "cuda" else cases[0]
+    dtype = torch.bfloat16
+    z, xbc, dt, prm, y, xh_in = _pw_inputs(device, b, s, h, p, n, k, extra, dtype)
+    args = (prm["conv_w"], prm["conv_b"], prm["dt_bias"], prm["A_log"])
+    calls = {"pre": (lambda: SP.conv_prep(xbc, dt, *args, head_dim=p), "ssm_conv_prep_kernel"),
+             "pre_plain": (lambda: SP.conv_prep_ref(xbc, dt, *args, head_dim=p), None),
+             "post": (lambda: SP.gated_norm(y, xh_in, z, prm["D"], prm["scale"], eps=1e-5),
+                      "ssm_gated_norm_kernel"),
+             "post_plain": (lambda: SP.gated_norm_ref(y, xh_in, z, prm["D"], prm["scale"],
+                                                      1e-5), None)}
+    t = _turns(device, f"ssm passes at Bb={b} S={s} H={h} P={p} N={n} K={k} bf16", calls)
+    es, c, rows = 2, h * p + 2 * n, b * s
+    nbytes = {"pre": rows * (c * es + h * es) + rows * (c * es + h * 4)
+              + (k + 1) * c * es + 2 * h * 4,
+              "post": rows * h * p * es * 4 + h * 4 + h * p * es}
+    out = {}
+    for name in ("pre", "post"):
+        row = _bounds(f"ssm {name}", dtype, nbytes[name], 0, t, (name,))
+        out[name] = dict(row, max_abs_err=err[name], ms=t[name], plain_ms=t[f"{name}_plain"],
+                         library_ms=None)
     return out
 
 
@@ -1904,19 +2031,21 @@ def phase_batch_invariance(device, cfg, params, sde):
 
 
 def _reset_counts():
-    from repro_torch.kernels import deis_step, flash_attention, ssd_scan
+    from repro_torch.kernels import deis_step, flash_attention, ssd_scan, ssm_pointwise
     for fn in (deis_step.fused_ab_step, flash_attention.flash_attention,
-               ssd_scan.ssd_scan):
+               ssd_scan.ssd_scan, ssm_pointwise.conv_prep, ssm_pointwise.gated_norm):
         fn.launches = 0
     for fn in (flash_attention.flash_attention, ssd_scan.ssd_scan):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def _counts():
-    from repro_torch.kernels import deis_step, flash_attention, ssd_scan
+    from repro_torch.kernels import deis_step, flash_attention, ssd_scan, ssm_pointwise
     return dict(K1=deis_step.fused_ab_step.launches,
                 K2=flash_attention.flash_attention.launches,
-                K3=ssd_scan.ssd_scan.launches)
+                K3=ssd_scan.ssd_scan.launches,
+                ssm_pre=ssm_pointwise.conv_prep.launches,
+                ssm_post=ssm_pointwise.gated_norm.launches)
 
 
 def _init_model(arch, device, reduced, n_layers=None):
@@ -1984,8 +2113,10 @@ def phase_one_shot(device, cfg, params, reduced, nfe=10, batch=4, cond=None):
     sde = VPSDE()
     plan = dataclasses.replace(make_plan("tab3", sde, get_timesteps(sde, nfe)), fused=True)
     mixers = "K3" if cfg.arch_type == "ssm" else "K2"
-    want = {"K1": plan.n_steps, "K2": 0, "K3": 0}
+    want = {"K1": plan.n_steps, "K2": 0, "K3": 0, "ssm_pre": 0, "ssm_post": 0}
     want[mixers] = cfg.n_layers * nfe
+    if mixers == "K3":          # the mixer's two pointwise passes, once a layer and NFE
+        want["ssm_pre"] = want["ssm_post"] = want["K3"]
     runs = {}
     with torch.no_grad():
         for use_kernels in (True, False):
@@ -2017,7 +2148,8 @@ def phase_one_shot(device, cfg, params, reduced, nfe=10, batch=4, cond=None):
                                             "tf32x3": 0}:
         raise AssertionError(f"{cfg.name}: {mixers} took the routes {routes}, not wgmma "
                              f"{want[mixers]} times")
-    if device.type == "cuda" and runs[False][2] != dict(want, K2=0, K3=0):
+    if device.type == "cuda" and runs[False][2] != dict(want, K2=0, K3=0, ssm_pre=0,
+                                                        ssm_post=0):
         raise AssertionError(f"{cfg.name}: plain route launched {runs[False][2]}")
     (tk, xk, _, _), (tp, xp, _, _) = runs[True], runs[False]
     eq = (tk == tp).float().mean().item()
@@ -2491,7 +2623,8 @@ def phase_paper(device, reduced):
     print(f"  {'solver':10s}" + "".join(f"  NFE={n:<4d}" for n in nfes))
     for name in names:
         print(f"  {name:10s}" + "".join(f"  {errs[name, n]:8.4f}" for n in nfes))
-    if device.type == "cuda" and counts != {"K1": want_k1, "K2": 0, "K3": 0}:
+    if device.type == "cuda" and counts != {"K1": want_k1, "K2": 0, "K3": 0, "ssm_pre": 0,
+                                            "ssm_post": 0}:
         raise AssertionError(f"paper: the table launched {counts}, not K1 {want_k1}")
     if not errs["tab3", 10] < errs["ddim", 10]:
         raise AssertionError(f"paper: tAB3@10 {errs['tab3', 10]:.4f} did not beat DDIM@10 "
@@ -3013,6 +3146,7 @@ def phase_card_vs_cpu(device):
         kinds = [_layer_kind(cfg, i)[0] for i in range(cfg.n_layers)]
         want = {"K1": 6, "K2": 6 * kinds.count("attn") * use_kernels,
                 "K3": 6 * kinds.count("ssm") * use_kernels}
+        want["ssm_pre"] = want["ssm_post"] = want["K3"]
         mixers = [m for m in ("K2", "K3") if want[m]]
         if not torch.isfinite(x_dev).all() or counts != want:
             raise AssertionError(f"{arch}: card route not finite or launched {counts}, "
@@ -3134,6 +3268,7 @@ def main(argv=None) -> int:
     k1 = phase_k1(device)
     k2 = phase_k2(device)
     k3 = phase_k3(device)
+    pw = phase_ssm_pointwise(device)
     phase_scaling(device)
     phase_stress(device)
     lap("kernels")
@@ -3249,9 +3384,13 @@ def main(argv=None) -> int:
                   "flash_attention.py:41", f32_path["K2"][route], k2["gemma"][route]),
                  (f"ssd_scan_{route}", "cuda", "csrc/ssd_scan.cu", "ssd_scan.py:40",
                   f32_path["K3"][route], k3[route])]
+    # the SSM mixer's passes replace no TPU kernel: their launches on mamba2's
+    # bf16 one-shot path
+    rows += [(f"ssm_{name}", "cuda", "csrc/ssm_pointwise.cu", None,
+              mamba["counts"][f"ssm_{name}"], pw[name]) for name in ("pre", "post")]
     print(json.dumps({"kernels": [{
         "name": name, "route": route, "source": f"src/repro_torch/kernels/{src}",
-        "replaces": f"src/repro/kernels/{site}", "launches": n,
+        "replaces": site and f"src/repro/kernels/{site}", "launches": n,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k.get("bound_by", "bytes"),
         "library_ms": k.get("library_ms"),

@@ -6,6 +6,8 @@ from __future__ import annotations
 from .deis_step import deis_step as _deis_step
 from .deis_step import fused_ab_step as _fused_ab_step
 from .flash_attention import flash_attention as _flash_attention
+from .ssm_pointwise import conv_prep as _conv_prep
+from .ssm_pointwise import gated_norm as _gated_norm
 from .ssd_scan import ssd_scan as _ssd_scan
 
 
@@ -26,3 +28,13 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
 def ssd_scan(x, a, B, C, *, chunk=128):
     return _ssd_scan(x, a, B, C, chunk=chunk)
+
+
+def ssm_conv_prep(xbc, dt, conv_w, conv_b, dt_bias, A_log, *, head_dim):
+    # the SSM mixer's `pre`: K3's operands (xh, B, C, a) in one pass
+    return _conv_prep(xbc, dt, conv_w, conv_b, dt_bias, A_log, head_dim=head_dim)
+
+
+def ssm_gated_norm(y, xh, z, D, norm_scale, *, eps):
+    # the SSM mixer's `post`: the D skip, the gated RMS norm, the gate
+    return _gated_norm(y, xh, z, D, norm_scale, eps=eps)

@@ -10,7 +10,9 @@ duality with one scalar decay per head::
 :func:`ssd_chunked` is the reference's plain chunked form; with
 ``use_kernels=True`` :func:`ssm_forward` calls kernel K3
 (:func:`repro_torch.kernels.ops.ssd_scan`) instead, as the reference's
-``use_pallas`` does. Autoregressive decode carries a cache of the conv
+``use_pallas`` does, and the pointwise work around it in two one-pass
+kernels (:mod:`repro_torch.kernels.ssm_pointwise`), where XLA fuses it for
+the reference. Autoregressive decode carries a cache of the conv
 history and the state and takes the O(1) recurrent update per token.
 
 Under a mesh (the sharded train step, parameters placed by
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..kernels import ssm_pointwise as SP
 from ..obs.trace import NULL_TRACER
 from ..sharding import tensor_parallel as TP
 
@@ -68,25 +71,6 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
     d_inner, n_heads = ssm_dims(cfg)
     n = cfg.ssm.state_dim
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * n, n_heads], dim=-1)
-
-
-def _causal_conv(xbc, w, b, state=None):
-    """Depthwise causal convolution of width K. xbc: (B, S, C); w: (K, C);
-    state: the K - 1 inputs before this sequence (B, K - 1, C), or None for
-    a zero history. Returns ``(silu(conv) in xbc's dtype, new_state)``,
-    where ``new_state`` holds the last K - 1 inputs (None when K is 1)."""
-    k = w.shape[0]
-    if state is None:
-        xp = F.pad(xbc, (0, 0, k - 1, 0))                  # (B, S + K - 1, C)
-    else:
-        xp = torch.cat([state, xbc], dim=1)
-    s = xbc.shape[1]
-    out = xp[:, 0:s] * w[0]
-    for i in range(1, k):
-        out = out + xp[:, i:i + s] * w[i]
-    out = out + b
-    new_state = xp[:, -(k - 1):] if k > 1 else None
-    return F.silu(out.to(torch.float32)).to(xbc.dtype), new_state
 
 
 def ssd_chunked(x, a, B, C, chunk: int):
@@ -149,13 +133,18 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     ``{"conv": (B, K-1, C), "state": (B, H, P, N)}`` for the O(1) decode
     update (S must be 1): ``state = state * a + B x^T``, ``y = C state`` in
     float32. ``use_kernels`` routes a full sequence's scan through kernel
-    K3 (the reference's ``use_pallas``); otherwise :func:`ssd_chunked` runs
-    it. Returns ``(out, {"conv", "state"})`` like the reference.
+    K3 (the reference's ``use_pallas``) and its pointwise work through
+    :func:`~repro_torch.kernels.ops.ssm_conv_prep` and
+    :func:`~repro_torch.kernels.ops.ssm_gated_norm`; otherwise
+    :func:`ssd_chunked` and the plain pieces of
+    :mod:`~repro_torch.kernels.ssm_pointwise` run it. Returns ``(out,
+    {"conv", "state"})`` like the reference.
 
     ``tracer``: five spans in turn, ``in_proj``; ``pre`` (the decay, the
-    causal convolution, the split, K3's contiguous operands); ``scan`` (K3,
-    :func:`ssd_chunked` or the decode update alone); ``post`` (the D skip,
-    the gated RMS norm, the cast); ``out_proj``."""
+    causal convolution, the split into K3's operands: one kernel on the
+    kernel route); ``scan`` (K3, :func:`ssd_chunked` or the decode update
+    alone); ``post`` (the D skip, the gated RMS norm, the cast: one kernel
+    on the kernel route); ``out_proj``."""
     bsz, s, _ = x.shape
     scfg = cfg.ssm
     d_inner, n_heads = ssm_dims(cfg)
@@ -165,24 +154,26 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     with tracer.span("in_proj"):
         zxbcdt, split = TP.linear(x, params["in_proj"])
         z, xbc, dt = _split_proj(cfg, TP.whole(zxbcdt, split, params["in_proj"]))
+    kernels = use_kernels and cache is None      # K3 and the two passes around it
     with tracer.span("pre"):
-        dt = F.softplus(dt.to(f32) + params["dt_bias"])          # (B, S, H)
-        a = torch.exp(dt * -torch.exp(params["A_log"]))          # decay in (0, 1)
-
         conv = TP.split_of(params["conv_w"])
         if conv is not None and use_kernels:
             raise ValueError("the mixer on a mesh runs on the plain route: no kernel")
-        channels = conv is not None and conv.dim is not None
-        if channels:
-            xbc = TP.split_model(xbc, -1, conv.ax)
-        xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                       state=None if cache is None else cache["conv"])
-        if channels:
-            xbc = TP.gather_model(xbc, -1, conv.ax)
-        xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
-        xh = xs.reshape(bsz, s, n_heads, p)
-        if cache is None and use_kernels:
-            k3_in = (xh.contiguous(), a.contiguous(), B.contiguous(), C.contiguous())
+        if kernels:
+            xh, B, C, a = ops.ssm_conv_prep(xbc, dt, params["conv_w"], params["conv_b"],
+                                            params["dt_bias"], params["A_log"], head_dim=p)
+            conv_state = SP.conv_tail(xbc, params["conv_w"].shape[0])
+        else:
+            a = SP.decay(dt, params["dt_bias"], params["A_log"])
+            channels = conv is not None and conv.dim is not None
+            if channels:
+                xbc = TP.split_model(xbc, -1, conv.ax)
+            xbc, conv_state = SP.causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                             state=None if cache is None else cache["conv"])
+            if channels:
+                xbc = TP.gather_model(xbc, -1, conv.ax)
+            xs, B, C = torch.split(xbc, [d_inner, n, n], dim=-1)
+            xh = xs.reshape(bsz, s, n_heads, p)
     with tracer.span("scan"):
         if cache is not None:
             if s != 1:
@@ -193,20 +184,17 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
             state = st
         else:
             chunk = min(scfg.chunk_size, s)
-            if use_kernels:
-                y, state = ops.ssd_scan(*k3_in, chunk=chunk)
-                del k3_in
+            if kernels:
+                y, state = ops.ssd_scan(xh, a, B, C, chunk=chunk)
             else:
                 y, state = ssd_chunked(xh, a, B, C, chunk=chunk)
 
     with tracer.span("post"):
-        y = y + params["D"][None, None, :, None] * xh.to(f32)
-        y = y.reshape(bsz, s, d_inner)
-        # gated RMS norm (mamba2)
-        y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
-        y = y * (1.0 + params["norm_scale"].to(f32))
-        y = y * F.silu(z.to(f32))
-        y = y.to(x.dtype)
+        if kernels:
+            y = ops.ssm_gated_norm(y, xh, z, params["D"], params["norm_scale"],
+                                   eps=cfg.norm_eps)
+        else:
+            y = SP.gated_norm_ref(y, xh, z, params["D"], params["norm_scale"], cfg.norm_eps)
     with tracer.span("out_proj"):
         out, _ = TP.linear(y, params["out_proj"])
     return out, {"conv": conv_state, "state": state}

@@ -21,6 +21,17 @@ multiples of 8) their 3xTF32 tensor-core kernels, other float32 (unaligned
 views, odd widths) their CUDA-core kernels. The mma.sync and CUDA-core
 kernels are also held over the same shapes by asking for their route.
 
+The SSM mixer's two pointwise passes (CUDA C++, ``kernels/ssm_pointwise.py``)
+on views of an in-projection output at mamba2's one-shot shape, jamba's
+mixer widths, the reduced config, S < K - 1, S no multiple of the time
+tile, K 1 and 3, and unaligned views, in bf16 and float32: ``pre``'s xh,
+B and C within one rounding of the dtype of the same sums in float64
+(bf16 rtol 2^-7, atol 1e-5; float32 1e-5) and within the plain chain's
+own rounding error (it rounds each of K products and K sums), its decay a
+at rtol 1e-5; ``post`` within one rounding of its plain version (the
+mean's summation order, rsqrtf). A one-shot sample of the reduced mamba2
+launches each pass and K3 once a layer and NFE.
+
 The training slice's card tests: a float32 train step against the CPU
 (loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
 update of the same grads rtol 1e-5, atol 1e-7), AdamW on CUDA tensors
@@ -337,6 +348,146 @@ def test_cuda_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="state"):
         SS.ssd_scan(torch.zeros(1, 8, 2, 16, device=cuda), torch.ones(1, 8, 2, device=cuda),
                     torch.zeros(1, 8, 256, device=cuda), torch.zeros(1, 8, 256, device=cuda))
+
+
+# the SSM mixer's passes: (Bb, S, H, P, N, K, extra columns of the in-projection).
+# The extra columns make the row stride no multiple of 8 elements (or 4 in
+# float32): the views then take the kernels' one-element accesses.
+PW_CASES = [
+    (16, 256, 80, 64, 128, 4, 0),   # mamba2-2.7b's one-shot shape
+    (2, 48, 256, 64, 128, 4, 0),    # jamba-1.5-large's mixer widths (d_inner 16384)
+    (2, 40, 32, 16, 16, 4, 0),      # the reduced config (P 16, N 16)
+    (3, 2, 32, 16, 16, 4, 0),       # S < K - 1
+    (2, 37, 8, 64, 128, 4, 1),      # S no multiple of the time tile (4), unaligned views
+    (2, 19, 5, 16, 16, 1, 3),       # K 1, odd head count, unaligned views
+    (1, 70, 6, 12, 20, 3, 0),       # widths that are no multiple of 8, K 3
+]
+
+
+def _pw_operands(cuda, b, s, h, p, n, k, extra, dtype):
+    """The in-projection's output (Bb, S, 2 d_inner + 2N + H + extra) drawn
+    on the card, its z, xBC and dt views, and the mixer's parameters."""
+    g = torch.Generator(device=cuda).manual_seed(b * s + h + k)
+    r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    d_inner, c = h * p, h * p + 2 * n
+    zx = r(b, s, d_inner + c + h + extra).to(dtype)
+    z, xbc = zx[..., :d_inner], zx[..., d_inner:d_inner + c]
+    dt = zx[..., d_inner + c:d_inner + c + h]
+    prm = dict(conv_w=(r(k, c) * 0.3).to(dtype), conv_b=(r(c) * 0.1).to(dtype),
+               dt_bias=r(h), A_log=r(h) * 0.5)
+    return z, xbc, dt, prm
+
+
+def _conv_exact(xbc, w, b):
+    """silu(conv) with the taps summed in float64 and rounded once to xbc's
+    dtype, and sum_i |w_i x_i| + |b| (the scale of the plain chain's
+    roundings)."""
+    k, s = w.shape[0], xbc.shape[1]
+    xp = torch.nn.functional.pad(xbc.double(), (0, 0, k - 1, 0))
+    acc = sum(xp[:, i:i + s] * w[i].double() for i in range(k)) + b.double()
+    mag = sum((xp[:, i:i + s] * w[i].double()).abs() for i in range(k)) + b.double().abs()
+    return torch.nn.functional.silu(acc).to(xbc.dtype), mag
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,k,extra", PW_CASES)
+def test_cuda_ssm_conv_prep_matches_plain(cuda, b, s, h, p, n, k, extra, dtype):
+    """The ``pre`` pass on views of the in-projection's output. xh, B and C:
+    within one rounding of the dtype of the same sums in float64 (rtol
+    2^-7 and atol 1e-5 in bf16, rtol = atol = 1e-5 in float32: the kernel
+    sums in float32 and rounds once); and, elementwise, within
+    1.1 (2K + 2) u (sum_i |w_i x_i| + |b|) + 2 u |want| of the plain chain,
+    u the dtype's unit roundoff (the chain rounds each of K products and K
+    sums, SiLU's slope is at most 1.1, and both round the output). a:
+    rtol 1e-5 (exp of arguments up to about 30 in size carries their few
+    ulp of error times that size)."""
+    from repro_torch.kernels import ssm_pointwise as SP
+    z, xbc, dt, prm = _pw_operands(cuda, b, s, h, p, n, k, extra, dtype)
+    args = (prm["conv_w"], prm["conv_b"], prm["dt_bias"], prm["A_log"])
+    before = SP.conv_prep.launches
+    xh, B, C, a = SP.conv_prep(xbc, dt, *args, head_dim=p)
+    got = (xh, B, C)
+    assert SP.conv_prep.launches == before + 1
+    want = SP.conv_prep_ref(xbc, dt, *args, head_dim=p)
+    exact, mag = _conv_exact(xbc, prm["conv_w"], prm["conv_b"])
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+    tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    for part, g, w in zip(torch.split(exact, [h * p, n, n], dim=-1), got, want):
+        assert g.is_contiguous() and g.dtype == dtype and g.shape == w.shape
+        g = g.reshape(part.shape)
+        torch.testing.assert_close(g.float(), part.float(), **tol)
+    bound = 1.1 * (2 * k + 2) * u * mag + 2 * u * exact.double().abs()
+    diff = (torch.cat([t.reshape(b, s, -1) for t in got], -1).double()
+            - torch.cat([t.reshape(b, s, -1) for t in want[:3]], -1).double()).abs()
+    assert bool((diff <= bound + 1e-30).all()), float((diff - bound).max())
+    torch.testing.assert_close(a, want[3], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,k,extra", PW_CASES)
+def test_cuda_ssm_gated_norm_matches_plain(cuda, b, s, h, p, n, k, extra, dtype):
+    """The ``post`` pass, z a view of the in-projection's output: within
+    one rounding of the plain version (which computes in float32 and rounds
+    once): rtol 2^-7, atol 1e-5 in bf16; rtol = atol = 1e-5 in float32 (the
+    mean's order of summation, rsqrtf)."""
+    from repro_torch.kernels import ssm_pointwise as SP
+    z, _, _, _ = _pw_operands(cuda, b, s, h, p, n, k, extra, dtype)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    y = torch.randn((b, s, h, p), generator=g, device=cuda).to(dtype)
+    xh = torch.randn((b, s, h, p), generator=g, device=cuda).to(dtype)
+    D = torch.randn(h, generator=g, device=cuda)
+    scale = (torch.randn(h * p, generator=g, device=cuda) * 0.1).to(dtype)
+    before = SP.gated_norm.launches
+    out = SP.gated_norm(y, xh, z, D, scale, eps=1e-5)
+    assert SP.gated_norm.launches == before + 1
+    want = SP.gated_norm_ref(y, xh, z, D, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == want.shape
+    tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+def test_cuda_ssm_passes_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import ssm_pointwise as SP
+    z, xbc, dt, prm = _pw_operands(cuda, 1, 8, 2, 16, 16, 4, 0, torch.float32)
+    with pytest.raises(ValueError, match="K in 1..4"):
+        SP.conv_prep(xbc, dt, torch.zeros(5, xbc.shape[-1], device=cuda), prm["conv_b"],
+                     prm["dt_bias"], prm["A_log"], head_dim=16)
+    with pytest.raises(ValueError, match="one device"):
+        SP.conv_prep(xbc, dt, prm["conv_w"], prm["conv_b"], prm["dt_bias"].cpu(),
+                     prm["A_log"], head_dim=16)
+    z = torch.zeros(2, 8, 32, device=cuda)
+    y = torch.zeros(2, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="y must be contiguous"):
+        SP.gated_norm(y.transpose(0, 1).contiguous().transpose(0, 1), y, z,
+                      torch.zeros(2, device=cuda), torch.zeros(32, device=cuda), eps=1e-5)
+
+
+def test_cuda_one_shot_mamba2_launches_each_pass_once_a_layer(cuda):
+    """A one-shot sample of the reduced float32 mamba2 on the kernel route:
+    each pass and K3 once a layer and NFE; the plain route launches none."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import VPSDE, get_timesteps, make_plan
+    from repro_torch.diffusion import lm as DLM
+    from repro_torch.kernels import ssm_pointwise as SP
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("mamba2_2p7b").reduced().with_(objective="diffusion")
+    params = init_params(cfg, 0, cuda)
+    sde = VPSDE()
+    plan = dataclasses.replace(make_plan("tab3", sde, get_timesteps(sde, 6)), fused=True)
+    want = cfg.n_layers * 6
+    x_T = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(6))
+    for use_kernels, n in ((True, want), (False, 0)):
+        before = (SP.conv_prep.launches, SP.gated_norm.launches, SS.ssd_scan.launches)
+        with torch.no_grad():
+            DLM.sample_tokens(params, cfg, plan, None, batch=2, seq_len=40, prior_std=1.0,
+                              use_kernels=use_kernels, x_T=x_T.to(cuda))
+        torch.cuda.synchronize()
+        after = (SP.conv_prep.launches, SP.gated_norm.launches, SS.ssd_scan.launches)
+        assert tuple(x - y for x, y in zip(after, before)) == (n, n, n)
 
 
 def _leaves(tree):
