@@ -21,12 +21,18 @@ served tokens; a one-shot cell's: one call of the window, drawn from the
 seed. The control (:func:`control_served`, :func:`control_oneshot`) is the
 reference computed with float8 products in the program's place, judged the
 same way; "bf16" gives a witness of the program's own precision.
+
+The reference network is the ``Net`` of the configuration's reference
+module (``arch``: :func:`chipbench.spec.arch_module`, default
+:mod:`chipbench.reference.model`); the solve and the decode's judgement are
+the same for every architecture.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import spec as S
 from .reference import model as R
 from .reference import quadrature as Q
 
@@ -62,12 +68,12 @@ def summarize(gap_list) -> dict:
             "mismatch": float((g > 0).float().mean()), "tokens_checked": int(g.numel())}
 
 
-def reference_served(weights, model: dict, spec, prec: str = "fp32"):
+def reference_served(weights, model: dict, spec, prec: str = "fp32", arch=None):
     """A served request solved alone by the reference at its bucket's
     length (the program's per-row semantics), from its seed: returns the
     net and the request's x0 cut to its length."""
     device = weights["embed"].device
-    net = R.Net(weights, model, prec=prec)
+    net = (arch or S.arch_module()).Net(weights, model, prec=prec)
     plan = Q.make_plan(spec.solver, spec.nfe)
     g_prior, g_solve = R.request_generators(spec.seed, device)
     x = R.prior(g_prior, spec.seq_len, spec.bucket, model["d_model"], device)[None]
@@ -75,17 +81,17 @@ def reference_served(weights, model: dict, spec, prec: str = "fp32"):
     return net, R.solve(net, plan, x, vl, [g_solve])[0, :spec.seq_len]
 
 
-def check_served(weights, model: dict, sample) -> dict:
+def check_served(weights, model: dict, sample, arch=None) -> dict:
     """The sampled requests' served tokens against the reference."""
     out = []
     with torch.no_grad(), R.exact_float32():
         for rec in sample:
-            net, x0 = reference_served(weights, model, rec.spec)
+            net, x0 = reference_served(weights, model, rec.spec, arch=arch)
             out.append(gaps(net.logits(x0), torch.as_tensor(rec.tokens, device=x0.device)))
     return dict(summarize(out), rows_checked=len(out))
 
 
-def reference_oneshot(weights, model: dict, mix: dict, seeds, prec: str = "fp32"):
+def reference_oneshot(weights, model: dict, mix: dict, seeds, prec: str = "fp32", arch=None):
     """The one-shot call with generator seeds ``seeds`` (prior, solve),
     solved by the reference: the net and x0 (B, S, d)."""
     device = weights["embed"].device
@@ -95,7 +101,7 @@ def reference_oneshot(weights, model: dict, mix: dict, seeds, prec: str = "fp32"
     plan = Q.make_plan(mix["solver"], int(mix["nfe"]))
     if plan["stochastic"]:
         raise ValueError("the one-shot reference takes deterministic plans")
-    net = R.Net(weights, model, prec=prec)
+    net = (arch or S.arch_module()).Net(weights, model, prec=prec)
     return net, R.solve(net, plan, x, torch.full((b,), s, device=device))
 
 
@@ -104,31 +110,32 @@ def oneshot_sample(samples, seed: int):
     return samples[int(rng.integers(0, len(samples)))]
 
 
-def check_oneshot(weights, model: dict, mix: dict, sample) -> dict:
+def check_oneshot(weights, model: dict, mix: dict, sample, arch=None) -> dict:
     """One sampled call's tokens and x0 against the reference."""
     with torch.no_grad(), R.exact_float32():
-        net, x0 = reference_oneshot(weights, model, mix, sample["seeds"])
+        net, x0 = reference_oneshot(weights, model, mix, sample["seeds"], arch=arch)
         g = gaps(net.logits(x0), torch.as_tensor(sample["tokens"], device=x0.device))
         rel = float((sample["x0"].float() - x0).norm() / x0.norm())
     return dict(summarize([g]), x0_rel=rel, rows_checked=int(mix["batch"]))
 
 
-def control_served(weights, model: dict, specs, prec: str = "fp8") -> dict:
+def control_served(weights, model: dict, specs, prec: str = "fp8", arch=None) -> dict:
     """The reference in ``prec`` put in the program's place on the sampled
     requests ``specs``: its tokens judged against the float32 reference."""
     out = []
     with torch.no_grad(), R.exact_float32():
         for spec in specs:
-            net, ref = reference_served(weights, model, spec)
-            low_net, low = reference_served(weights, model, spec, prec=prec)
+            net, ref = reference_served(weights, model, spec, arch=arch)
+            low_net, low = reference_served(weights, model, spec, prec=prec, arch=arch)
             out.append(gaps(net.logits(ref), low_net.logits(low).argmax(-1)))
     return dict(summarize(out), rows_checked=len(out))
 
 
-def control_oneshot(weights, model: dict, mix: dict, seeds, prec: str = "fp8") -> dict:
+def control_oneshot(weights, model: dict, mix: dict, seeds, prec: str = "fp8",
+                    arch=None) -> dict:
     with torch.no_grad(), R.exact_float32():
-        net, ref = reference_oneshot(weights, model, mix, seeds)
-        low_net, low = reference_oneshot(weights, model, mix, seeds, prec=prec)
+        net, ref = reference_oneshot(weights, model, mix, seeds, arch=arch)
+        low_net, low = reference_oneshot(weights, model, mix, seeds, prec=prec, arch=arch)
         g = gaps(net.logits(ref), low_net.logits(low).argmax(-1))
         return dict(summarize([g]), x0_rel=float((low - ref).norm() / ref.norm()))
 

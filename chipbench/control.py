@@ -23,16 +23,16 @@ import json
 import sys
 
 
-def control_numbers(weights, model, mix, picked) -> dict:
+def control_numbers(weights, model, mix, picked, arch) -> dict:
     """The control's numbers (float8) and a witness's (the reference in bf16,
     the program's own precision) on what the check compared."""
     from . import check
     out = {}
     for prec, key in (("fp8", "control"), ("bf16", "witness_bf16")):
         if isinstance(picked, dict):              # a one-shot call
-            nums = check.control_oneshot(weights, model, mix, picked["seeds"], prec)
+            nums = check.control_oneshot(weights, model, mix, picked["seeds"], prec, arch)
         else:
-            nums = check.control_served(weights, model, [r.spec for r in picked], prec)
+            nums = check.control_served(weights, model, [r.spec for r in picked], prec, arch)
         out[key] = nums
     return out
 

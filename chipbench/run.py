@@ -64,14 +64,15 @@ def forbidden_modules() -> list[str]:
 
 
 class Context:
-    """What a per-layer metric's reader may read: the cell, its traffic kind
-    and config, the window (records or samples, length, counters at both
-    ends), the trace, and the arithmetic modules."""
+    """What a per-layer metric's reader may read: the cell, its traffic kind,
+    config and reference module (``arch``), the window (records or samples,
+    length, counters at both ends), the trace, and the arithmetic modules."""
 
     def __init__(self, cell, kind, model, mix, window):
         from . import bounds, flops
         from .reference import quadrature
         self.cell, self.kind, self.model, self.mix, self.window = cell, kind, model, mix, window
+        self.arch = cell["arch_module"]
         self.trace = window.trace
         self.bounds, self.flops, self.quadrature = bounds, flops, quadrature
 
@@ -95,10 +96,11 @@ class Context:
         if self.kind == "oneshot":
             b, s, nfe = int(self.mix["batch"]), int(self.mix["seq_len"]), int(self.mix["nfe"])
             n = sum(1 for r in self.window.records if w0 < r["done"] <= w0 + span + 0.05)
-            return n * b * s * nfe, n * b * self.flops.sample_flops(self.model, s, nfe)
+            return n * b * s * nfe, n * b * self.flops.sample_flops(self.model, s, nfe, self.arch)
         reqs = [r for r in self.window.records if r.ok and w0 <= r.done <= w0 + span]
         return (sum(r.spec.seq_len * r.spec.nfe for r in reqs),
-                sum(self.flops.sample_flops(self.model, r.spec.seq_len, r.spec.nfe) for r in reqs))
+                sum(self.flops.sample_flops(self.model, r.spec.seq_len, r.spec.nfe, self.arch)
+                    for r in reqs))
 
 
 def _kind(cell: dict) -> str:
@@ -136,8 +138,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     ``device``: a torch device (the card by default); ``base``: where the
     configs, mixes, cells and readers lie; ``root``: where BENCHMARK.json lies;
     ``overrides``: keys replaced in the cell (the control tool's shorter
-    warm-up); ``after_check(weights, model, mix, picked)``: called with what
-    the check compared, its return put under the result's ``control``."""
+    warm-up); ``after_check(weights, model, mix, picked, arch)``: called with
+    what the check compared, its return put under the result's ``control``."""
     import torch
 
     from . import check, drive, spec
@@ -148,10 +150,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     device = torch.device(device or "cuda")
     cell = dict(spec.load_cell(name, base), **(overrides or {}))
     kind, mix, model = _kind(cell), cell["mix_data"], cell["config_data"]["model"]
+    arch = cell["arch_module"]
     e2e_names, layer_names = spec.cell_metrics(name, DEFAULT_E2E[kind], root)
     cfg = config_from_dict(model)
-    params = W.make(model, seed, device)
-    log(f"weights of {cell['config']} made ({W.n_params(model)} parameters)")
+    params = W.make(model, seed, device, arch)
+    log(f"weights of {cell['config']} made ({W.n_params(model, arch)} parameters)")
     sink = None
     if kind == "oneshot":
         window = drive.oneshot(params, cfg, mix, seed, seconds, trace, device)
@@ -187,13 +190,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
     limits = cell.get("check", {}).get("limits", {})
     if kind == "oneshot":
         picked = check.oneshot_sample(window.records, seed)
-        numbers = check.check_oneshot(params, model, mix, picked)
+        numbers = check.check_oneshot(params, model, mix, picked, arch)
     else:
         picked = check.served_sample(window.records, window.w0, seed,
                                      int(cell.get("check", {}).get("sample_tokens", 600)))
-        numbers = check.check_served(params, model, picked)
+        numbers = check.check_served(params, model, picked, arch)
     log(f"reference checked: {numbers}")
-    control = after_check(params, model, mix, picked) if after_check else None
+    control = after_check(params, model, mix, picked, arch) if after_check else None
     ok, rows = check.verdict(numbers, limits)
     rows.append(("failed_requests", failed, 0))
     correct = ok and failed == 0

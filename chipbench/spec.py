@@ -9,14 +9,19 @@
   (closed-loop clients) and the limits of its correctness check;
 - ``metrics/<metric>.py``: the reader of a per-layer metric
   (``<name>.py``, or ``<base>.py`` for a metric ``<base>.<variant>``);
+- ``reference/<arch>.py``: the reference module of an architecture, named
+  by a configuration's top-level ``"arch"`` (default ``model``): its
+  ``Net`` and, optionally, its ``layer_leaves`` (:mod:`chipbench.weights`)
+  and ``layer_flops`` (:mod:`chipbench.flops`);
 - ``BENCHMARK.json`` at the checkout's root: which end-to-end and
   per-layer metrics each cell reports.
 
-A later change adds a configuration, mix, metric or cell by adding files
-(and entries in ``BENCHMARK.json``); no file here names one.
+A later change adds a configuration, architecture, mix, metric or cell by
+adding files (and entries in ``BENCHMARK.json``); no file here names one.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -34,12 +39,44 @@ def _load(kind: str, name: str, base: Path = HERE) -> dict:
 
 
 def load_cell(name: str, base: Path = HERE) -> dict:
-    """The cell ``name`` with its ``config`` and ``mix`` dicts resolved."""
+    """The cell ``name`` with its ``config`` and ``mix`` dicts and its
+    configuration's reference module (``arch_module``) resolved."""
     cell = _load("cells", name, base)
     cell["name"] = name
     cell["config_data"] = _load("configs", cell["config"], base)
     cell["mix_data"] = _load("mixes", cell["mix"], base)
+    cell["arch_module"] = arch_module(cell["config_data"].get("arch", "model"), base)
     return cell
+
+
+_ARCHS: dict = {}
+
+
+def arch_module(name: str = "model", base: Path = HERE):
+    """The reference module ``reference/<name>.py`` of an architecture, from
+    ``base`` or else from the harness's own ``reference/``; it defines
+    ``Net`` (``(w, m, prec)``, called ``(x, t, valid_len)``, with
+    ``logits(x0)``) and may define ``layer_leaves(m, i, kinds, rnd, const)``
+    and ``layer_flops(m, i, seq_len)``. Loaded once per file."""
+    if not name.isidentifier():
+        raise ValueError(f"reference module name {name!r} is no Python identifier")
+    dirs = [base / "reference", HERE / "reference"]
+    path = next((d / f"{name}.py" for d in dirs if (d / f"{name}.py").is_file()), None)
+    if path is None:
+        have = sorted({p.stem for d in dirs for p in d.glob("*.py")} - {"__init__"})
+        raise FileNotFoundError(f"no reference module {name!r} (have {have})")
+    path = path.resolve()
+    if path not in _ARCHS:
+        if path.parent == HERE / "reference":
+            mod = importlib.import_module(f"{__package__}.reference.{name}")
+        else:
+            imp = importlib.util.spec_from_file_location(f"chipbench_arch_{name}", path)
+            mod = importlib.util.module_from_spec(imp)
+            imp.loader.exec_module(mod)
+        if not hasattr(mod, "Net"):
+            raise AttributeError(f"reference module {name!r} ({path}) defines no Net")
+        _ARCHS[path] = mod
+    return _ARCHS[path]
 
 
 def names(kind: str, base: Path = HERE) -> list[str]:

@@ -25,6 +25,14 @@ CONFIGS = {
         "n_kv_heads": 1, "d_ff": 0, "vocab_size": 128, "norm_eps": 1e-5, "tie_embeddings": True,
         "ssm": {"state_dim": 16, "head_dim": 16, "expand": 2, "conv_width": 4, "chunk_size": 16},
         "dtype": "float32", "objective": "diffusion", "time_emb_dim": 32}},
+    # layers ssm+mlp, ssm+moe, attn+mlp, ssm+moe; head_dim 32 is one that K2 takes
+    "tiny-hybrid": {"name": "tiny-hybrid", "source": "test", "reduced": [], "model": {
+        "name": "tiny-hybrid", "arch_type": "hybrid", "n_layers": 4, "d_model": 64,
+        "n_heads": 4, "n_kv_heads": 2, "head_dim": 32, "d_ff": 96, "vocab_size": 128,
+        "norm_eps": 1e-5, "moe": {"num_experts": 4, "top_k": 2, "capacity_factor": 1.25},
+        "ssm": {"state_dim": 16, "head_dim": 16, "expand": 2, "conv_width": 4, "chunk_size": 16},
+        "attn_every": 4, "moe_every": 2, "dtype": "float32", "objective": "diffusion",
+        "time_emb_dim": 32}},
 }
 MIXES = {
     "tiny_mix": {"kind": "served", "solvers": {"ddim": 0.25, "tab3": 0.25, "dpm2m": 0.15,
@@ -43,6 +51,8 @@ CELLS = {
                         "check": {"sample_tokens": 40, "limits": {"gap_sd": 0.01}}},
     "tiny-ssm.oneshot": {"config": "tiny-ssm", "mix": "tiny_oneshot",
                          "check": {"limits": {"gap_sd": 0.01, "x0_rel": 1e-3}}},
+    "tiny-hybrid.oneshot": {"config": "tiny-hybrid", "mix": "tiny_oneshot",
+                            "check": {"limits": {"gap_sd": 0.01, "x0_rel": 1e-3}}},
 }
 
 
@@ -55,10 +65,12 @@ def write(base: Path) -> Path:
     return base
 
 
-def run(name: str, base: Path, seconds: float = 1.5, trace: bool = False, seed: int = 2 ** 31 + 5):
-    """``chipbench.run.run_cell`` of a tiny cell on the CPU."""
+def run(name: str, base: Path, seconds: float = 1.5, trace: bool = False, seed: int = 2 ** 31 + 5,
+        device: str = "cpu"):
+    """``chipbench.run.run_cell`` of a tiny cell, on the CPU unless ``device``
+    says otherwise."""
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     from chipbench import run as R
     R.setup_env()
-    return R.run_cell(name, seed, seconds, trace, device="cpu", base=base, root=base)
+    return R.run_cell(name, seed, seconds, trace, device=device, base=base, root=base)

@@ -64,7 +64,7 @@ def _altered_token(monkeypatch):
     monkeypatch.setattr(lm, "decode_tokens", decode)
 
 
-CELLS = ["tiny-moe.closed", "tiny-ssm.closed", "tiny-ssm.oneshot"]
+CELLS = ["tiny-moe.closed", "tiny-ssm.closed", "tiny-ssm.oneshot", "tiny-hybrid.oneshot"]
 
 
 @pytest.mark.parametrize("cell", CELLS)

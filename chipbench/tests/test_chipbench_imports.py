@@ -1,12 +1,15 @@
 """No module the benchmark loads is JAX's or the JAX package's (top-level
-names compared whole: the port's name begins with the JAX package's), and
-the command fails without the program beside it."""
+names compared whole: the port's name begins with the JAX package's), no
+reference module imports the program, and the command fails without the
+program beside it."""
 import json
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -47,3 +50,18 @@ def test_command_fails_without_the_program(tmp_path):
     out = subprocess.run(cmd, cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert not out.stdout.strip().startswith("{")
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "chipbench" / "reference").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_reference_modules_import_nothing_of_the_program(path):
+    """Every reference module (``model`` and each architecture's) is written
+    from the equations: no import of the port, of JAX or of the JAX package."""
+    import ast
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    assert not names & {"jax", "jaxlib", "flax", "repro", "repro_torch"}, names

@@ -35,7 +35,7 @@ def test_frozen_plans_equal_the_ports(solver, nfe):
                                    rtol=1e-12, atol=1e-14, err_msg=key)
 
 
-@pytest.mark.parametrize("config", ["tiny-moe", "tiny-dense", "tiny-ssm"])
+@pytest.mark.parametrize("config", ["tiny-moe", "tiny-dense", "tiny-ssm", "tiny-hybrid"])
 def test_reference_forward_matches_the_plain_route(config):
     from repro_torch.configs.base import config_from_dict
     from repro_torch.models import transformer as T
