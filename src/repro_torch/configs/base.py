@@ -9,6 +9,12 @@ cross-entropy mode, the MoE batch pin ``act_shard_axes``,
 ``repro_torch.configs.<arch>``; the dry runs' ``ShapeConfig`` and
 ``INPUT_SHAPES``; and the strict dict -> dataclass converter
 ``config_from_dict``.
+
+The port adds fields of its own (no position embedding, a softmax
+scale, the muP multipliers, a shared expert, the gated norm's order),
+each with a default under which a config computes what the reference's
+does. ``ARCH_IDS`` are the reference's eleven archs; ``PORT_ARCH_IDS``
+are the configs only the port has.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_z_loss: float = 1e-3
     load_balance_loss: float = 1e-2
+    shared_ff: int = 0        # a shared expert's width, beside the routed ones; 0 = none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +42,8 @@ class SSMConfig:
     expand: int = 2
     conv_width: int = 4
     chunk_size: int = 256
+    gate_first: bool = False  # gated norm rms(y * silu(z)) (published Mamba-2);
+    #                           False: rms(y) * silu(z), the reference's order
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +81,11 @@ class ModelConfig:
     act_shard_axes: Optional[tuple] = None  # mesh axes the MoE activation's
     #                               batch dim is pinned to under a mesh; None
     #                               = the batch's own layout (baseline)
+    pos_embedding: str = "rope"   # rope | none (NoPE: attention sees no positions)
+    attn_scale: float = 0.0       # softmax scale; 0 -> 1 / sqrt(head_dim)
+    embedding_multiplier: float = 1.0  # muP: the input stream is embeds x this
+    residual_multiplier: float = 1.0   # muP: each branch adds this x its output
+    logits_scaling: float = 1.0        # muP: the vocabulary logits are divided by this
 
     @property
     def resolved_head_dim(self) -> int:
@@ -123,7 +137,10 @@ class ModelConfig:
         if self.sliding_window:
             kw["sliding_window"] = 16
         if self.moe is not None:
-            kw["moe"] = dataclasses.replace(self.moe, num_experts=min(self.moe.num_experts, 4))
+            e = min(self.moe.num_experts, 4)
+            kw["moe"] = dataclasses.replace(self.moe, num_experts=e,
+                                            top_k=min(self.moe.top_k, e),
+                                            shared_ff=min(self.moe.shared_ff, 512))
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, state_dim=16, head_dim=16, chunk_size=16)
         return self.with_(**kw)
@@ -152,6 +169,8 @@ ARCH_IDS = [
     "grok_1_314b", "mamba2_2p7b", "glm4_9b", "gemma_2b", "granite_3_8b",
     "jamba_1p5_large", "cifar10_scorenet",
 ]
+# configs the port has and the reference does not (they set the port's own fields)
+PORT_ARCH_IDS = ["granite_4p0_h_small"]
 
 
 def get_config(arch: str, **overrides) -> ModelConfig:

@@ -101,6 +101,8 @@ def diffusion_loss(params, cfg: ModelConfig, sde, tokens, gen=None, *, prefix=No
     x0_hat = (xt - sig * eps_pred) / torch.clamp(mu, min=1e-4)
     head = T.lm_head(params, cfg, embed)
     logits, split = TP.linear(x0_hat / X0_SCALE, TP.cast(head, torch.float32))
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     ce = TP.batch_mean(cross_entropy(logits, tokens, cfg,
                                      split=TP.split_of(head) if split else None), ax)
 
@@ -143,7 +145,8 @@ def make_eps_fn(params, cfg: ModelConfig, *, prefix=None, frames=None,
 def decode_tokens(params, cfg: ModelConfig, x0):
     """Round solved embeddings ``x0`` to tokens through the LM head:
     ``argmax((x0 / X0_SCALE) @ head)`` in float32 (first maximum wins, as
-    ``jnp.argmax``)."""
+    ``jnp.argmax``; ``cfg.logits_scaling``, a positive divisor, moves no
+    argmax)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x0 / X0_SCALE) @ head.to(torch.float32)
     return torch.argmax(logits, dim=-1)

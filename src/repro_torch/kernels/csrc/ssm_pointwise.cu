@@ -29,15 +29,21 @@
 //   kernel's instructions, not its bytes, set its time (70 us against 52
 //   at 16-step tiles). The blocks of a (time tile, batch) share its decays,
 //   at most one a thread at the cell's widths.
-// * ssm_gated_norm_kernel<T, V, NV> (the mixer's `post`): per token row,
+// * ssm_gated_norm_kernel<T, V, NV, GATE_FIRST> (the mixer's `post`): per
+//   token row,
 //     v   = y + D[h] * xh
 //     out = v * rsqrt(mean(v^2) + eps) * (1 + norm_scale) * silu(z)
+//   or, GATE_FIRST (the published Mamba-2 layer's order, granite's),
+//     g   = v * silu(z)
+//     out = g * rsqrt(mean(g^2) + eps) * (1 + norm_scale)
 //   in float32, stored in T; y (K3's output) and xh contiguous, z read in
 //   place from the in-projection. One block a row (up to 1024 threads); each
 //   thread holds NV vectors of V channels (16 bytes where the operands
-//   allow) of v in registers across the sum of squares (warp shuffles, then
-//   one shared-memory step), then reads z and the scale and stores. At
-//   mamba2's width a thread holds one vector, 640 threads a row.
+//   allow) of v (g) in registers across the sum of squares (warp shuffles,
+//   then one shared-memory step), then reads z (before the sum when
+//   GATE_FIRST) and the scale and stores. At mamba2's width a thread holds
+//   one vector, 640 threads a row; at granite-4.0-h-small's (d_inner 8192)
+//   one vector, 1024 threads.
 //
 // What bounds them on the card: bytes. At mamba2-2.7b's one-shot shape (Bb
 // 16, S 256, d_inner 5120, N 128, H 80, bf16) `pre` reads 44.70 MB and
@@ -173,7 +179,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
     return red[32];
 }
 
-template <typename T, int V, int NV>
+template <typename T, int V, int NV, bool GATE_FIRST>
 __global__ void __launch_bounds__(NORM_THREADS) ssm_gated_norm_kernel(
         const T* __restrict__ y, const T* __restrict__ xh,
         const T* __restrict__ z, long long z_sb, long long z_ss,
@@ -186,13 +192,14 @@ __global__ void __launch_bounds__(NORM_THREADS) ssm_gated_norm_kernel(
     const T* xr = xh + row * d_inner;
     const T* zr = z + b * z_sb + s * z_ss;
     const int nvec = d_inner / V;
-    Pack<T, V> yp[NV], xp[NV];
+    Pack<T, V> yp[NV], xp[NV], zf[NV];
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
         const int i = threadIdx.x + k * blockDim.x;
         if (i < nvec) {
             yp[k] = *reinterpret_cast<const Pack<T, V>*>(yr + i * V);
             xp[k] = *reinterpret_cast<const Pack<T, V>*>(xr + i * V);
+            if constexpr (GATE_FIRST) zf[k] = *reinterpret_cast<const Pack<T, V>*>(zr + i * V);
         }
     }
     float v[NV][V];
@@ -205,6 +212,7 @@ __global__ void __launch_bounds__(NORM_THREADS) ssm_gated_norm_kernel(
 #pragma unroll
             for (int e = 0; e < V; ++e) {
                 v[k][e] = to_f(yp[k].v[e]) + d * to_f(xp[k].v[e]);
+                if constexpr (GATE_FIRST) v[k][e] *= silu(to_f(zf[k].v[e]));
                 ss += v[k][e] * v[k][e];
             }
         }
@@ -214,12 +222,17 @@ __global__ void __launch_bounds__(NORM_THREADS) ssm_gated_norm_kernel(
     for (int k = 0; k < NV; ++k) {
         const int i = threadIdx.x + k * blockDim.x;
         if (i < nvec) {
-            const Pack<T, V> zp = *reinterpret_cast<const Pack<T, V>*>(zr + i * V);
             const Pack<T, V> sp = *reinterpret_cast<const Pack<T, V>*>(scale + i * V);
             float o[V];
+            if constexpr (GATE_FIRST) {
 #pragma unroll
-            for (int e = 0; e < V; ++e)
-                o[e] = v[k][e] * r * (1.f + to_f(sp.v[e])) * silu(to_f(zp.v[e]));
+                for (int e = 0; e < V; ++e) o[e] = v[k][e] * r * (1.f + to_f(sp.v[e]));
+            } else {
+                const Pack<T, V> zp = *reinterpret_cast<const Pack<T, V>*>(zr + i * V);
+#pragma unroll
+                for (int e = 0; e < V; ++e)
+                    o[e] = v[k][e] * r * (1.f + to_f(sp.v[e])) * silu(to_f(zp.v[e]));
+            }
             store<T, V>(out + row * d_inner + i * V, o);
         }
     }
@@ -256,11 +269,16 @@ template <typename T, int V, int NV>
 void launch_norm_nv(const void* y, const void* xh, const void* z, long long z_sb,
                     long long z_ss, const void* D, const void* scale, void* out,
                     unsigned rows, int threads, int S, int d_inner, int P, float eps,
-                    cudaStream_t st) {
-    ssm_gated_norm_kernel<T, V, NV><<<rows, threads, 0, st>>>(
-        static_cast<const T*>(y), static_cast<const T*>(xh), static_cast<const T*>(z), z_sb,
-        z_ss, static_cast<const float*>(D), static_cast<const T*>(scale),
-        static_cast<T*>(out), S, d_inner, P, eps);
+                    bool gate_first, cudaStream_t st) {
+#define SSM_NORM_KERNEL_ARGS                                                                 \
+    static_cast<const T*>(y), static_cast<const T*>(xh), static_cast<const T*>(z), z_sb,     \
+        z_ss, static_cast<const float*>(D), static_cast<const T*>(scale),                    \
+        static_cast<T*>(out), S, d_inner, P, eps
+    if (gate_first)
+        ssm_gated_norm_kernel<T, V, NV, true><<<rows, threads, 0, st>>>(SSM_NORM_KERNEL_ARGS);
+    else
+        ssm_gated_norm_kernel<T, V, NV, false><<<rows, threads, 0, st>>>(SSM_NORM_KERNEL_ARGS);
+#undef SSM_NORM_KERNEL_ARGS
 }
 
 // NV as asked where it fits MAX_NORM_FLOATS and MAX_NORM_NV (else 1: a case
@@ -274,7 +292,8 @@ constexpr int fit(int nv, int v) {
 template <typename T, int V>
 cudaError_t launch_norm(const void* y, const void* xh, const void* z, long long z_sb,
                         long long z_ss, const void* D, const void* scale, void* out, int Bb,
-                        int S, int d_inner, int P, float eps, cudaStream_t st) {
+                        int S, int d_inner, int P, float eps, bool gate_first,
+                        cudaStream_t st) {
     const int nvec = d_inner / V;
     int nv = 1;
     while (nv * NORM_THREADS < nvec) nv *= 2;
@@ -282,8 +301,9 @@ cudaError_t launch_norm(const void* y, const void* xh, const void* z, long long 
     if (nv * V > MAX_NORM_FLOATS || nv > MAX_NORM_NV || rows > 0x7fffffffLL)
         return cudaErrorInvalidValue;
     const int threads = ((nvec + nv - 1) / nv + 31) / 32 * 32;
-#define SSM_NORM_ARGS \
-    y, xh, z, z_sb, z_ss, D, scale, out, (unsigned)rows, threads, S, d_inner, P, eps, st
+#define SSM_NORM_ARGS                                                                        \
+    y, xh, z, z_sb, z_ss, D, scale, out, (unsigned)rows, threads, S, d_inner, P, eps,        \
+        gate_first, st
     switch (nv) {
         case 1: launch_norm_nv<T, V, fit(1, V)>(SSM_NORM_ARGS); break;
         case 2: launch_norm_nv<T, V, fit(2, V)>(SSM_NORM_ARGS); break;
@@ -332,24 +352,26 @@ extern "C" int ssm_conv_prep(const void* xbc, long long xbc_sb, long long xbc_ss
 
 // dtype and vec as for ssm_conv_prep (vec also needs head_dim P to be a
 // multiple of the elements in 16 bytes). y, xh and out are contiguous (Bb,
-// S, d_inner); z's channel stride is 1.
+// S, d_inner); z's channel stride is 1. gate_first: 1 for the gate before
+// the norm, else 0.
 extern "C" int ssm_gated_norm(const void* y, const void* xh, const void* z, long long z_sb,
                               long long z_ss, const void* D, const void* scale, void* out,
                               int Bb, int S, int d_inner, int P, float eps, int dtype,
-                              int vec, void* stream) {
+                              int vec, int gate_first, void* stream) {
     if (Bb < 1 || S < 1 || d_inner < 1 || P < 1 || d_inner % P) return cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool gf = gate_first != 0;
     if (dtype == 0) {
         return vec ? launch_norm<float, 4>(y, xh, z, z_sb, z_ss, D, scale, out, Bb, S, d_inner,
-                                           P, eps, st)
+                                           P, eps, gf, st)
                    : launch_norm<float, 1>(y, xh, z, z_sb, z_ss, D, scale, out, Bb, S, d_inner,
-                                           P, eps, st);
+                                           P, eps, gf, st);
     }
     if (dtype == 1) {
         return vec ? launch_norm<__nv_bfloat16, 8>(y, xh, z, z_sb, z_ss, D, scale, out, Bb, S,
-                                                   d_inner, P, eps, st)
+                                                   d_inner, P, eps, gf, st)
                    : launch_norm<__nv_bfloat16, 1>(y, xh, z, z_sb, z_ss, D, scale, out, Bb, S,
-                                                   d_inner, P, eps, st);
+                                                   d_inner, P, eps, gf, st);
     }
     return cudaErrorInvalidValue;
 }

@@ -100,12 +100,14 @@ def route(q, k, v) -> str:
     return "mma_sync"
 
 
-def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None) -> torch.Tensor:
+def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None,
+            scale=None) -> torch.Tensor:
     """Check the operands, allocate the output and launch ``fn`` on
     ``stream`` on the operands' route (``route_name`` picks another route
     that takes them, :func:`~.runtime.route_takes`: ``mma_sync`` for any
     bf16, ``cuda_cores`` for any float32, to time them beside ``wgmma`` and
-    ``tf32x3``); raise on a nonzero CUDA error."""
+    ``tf32x3``), the logits times ``scale`` (None: ``1/sqrt(D)``); raise on
+    a nonzero CUDA error."""
     _check(q, k, v, window)
     own = route(q, k, v)
     name = route_name or own
@@ -116,7 +118,7 @@ def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None) -> 
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              ROUTE_CODES[name], b, sq, sk, h, kv, d, 1 if causal else 0, window,
-             1.0 / math.sqrt(d), stream)
+             1.0 / math.sqrt(d) if scale is None else scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
@@ -124,15 +126,16 @@ def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None) -> 
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D), H % KV == 0. Returns
-    (B, Sq, H, D) in q's dtype."""
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D), H % KV == 0; the logits
+    times ``scale`` (None: ``1/sqrt(D)``). Returns (B, Sq, H, D) in q's
+    dtype."""
     if not use_kernel(q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     with torch.cuda.device(q.device):
         fn = build.entry("flash_attention", "flash_attention_fwd", ARGTYPES)
         return _launch(fn, q, k, v, causal, window,
-                       torch.cuda.current_stream().cuda_stream)
+                       torch.cuda.current_stream().cuda_stream, scale=scale)
 
 
 flash_attention.launches = 0

@@ -22,8 +22,9 @@ def fused_ab_step(x, hist, psi, coeffs, *, s=None, noise=None,
                           err_coeffs=err_coeffs)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    return _flash_attention(q, k, v, causal=causal, window=window)
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    # scale: the logits' factor, None for 1/sqrt(head_dim)
+    return _flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def ssd_scan(x, a, B, C, *, chunk=128):
@@ -35,6 +36,7 @@ def ssm_conv_prep(xbc, dt, conv_w, conv_b, dt_bias, A_log, *, head_dim):
     return _conv_prep(xbc, dt, conv_w, conv_b, dt_bias, A_log, head_dim=head_dim)
 
 
-def ssm_gated_norm(y, xh, z, D, norm_scale, *, eps):
+def ssm_gated_norm(y, xh, z, D, norm_scale, *, eps, gate_first=False):
     # the SSM mixer's `post`: the D skip, the gated RMS norm, the gate
-    return _gated_norm(y, xh, z, D, norm_scale, eps=eps)
+    # (gate_first: the gate before the norm)
+    return _gated_norm(y, xh, z, D, norm_scale, eps=eps, gate_first=gate_first)

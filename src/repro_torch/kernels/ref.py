@@ -62,14 +62,14 @@ def deis_step_ref(x, eps_hist, psi, coeffs):
     return (psi.to(f32) * x.to(f32) + comb).to(x.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     """Attention in the arithmetic of the Pallas body
     (``repro.kernels.flash_attention._kernel``), in one block.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0, any float
     dtype. Query head h reads KV head ``h // (H // KV)``. Float32 logits
-    times ``1/sqrt(D)``; query positions offset by ``Sk - Sq``; causal and
-    window masks set to -1e30 (no key is padded here, so the kernel's
+    times ``scale`` (None: ``1/sqrt(D)``); query positions offset by
+    ``Sk - Sq``; causal and window masks set to -1e30 (no key is padded here, so the kernel's
     padding mask has nothing to mask); probabilities ``exp(s - max)`` in
     float32 (0 where masked) into a float32 PV product, divided by
     ``max(l, 1e-30)``. Returns (B, Sq, H, D) in q's dtype.
@@ -80,7 +80,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     head = torch.arange(h, device=q.device) // (h // kv)
     kf = k.to(f32).index_select(2, head)
     vf = v.to(f32).index_select(2, head)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kf) * (1.0 / math.sqrt(d))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kf) * (
+        1.0 / math.sqrt(d) if scale is None else scale)
     qp = (sk - sq) + torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)

@@ -17,7 +17,9 @@ once.
   to the working dtype, as the mixer always has.
 * :func:`gated_norm` (the mixer's ``post``): ``v = y + D[h] xh``, then
   ``v rsqrt(mean(v^2) + eps) (1 + norm_scale) silu(z)`` in float32, stored
-  in x's dtype.
+  in x's dtype; or, with ``gate_first`` (the published Mamba-2 layer's
+  order, granite-4.0-h-small's), ``g = v silu(z)``, then ``g rsqrt(mean(g^2)
+  + eps) (1 + norm_scale)``.
 
 What bounds them on the card: bytes. At mamba2-2.7b's one-shot shape (Bb
 16, S 256, d_inner 5120, N 128, H 80, bf16) ``pre`` moves 90.05 MB (26.9 us
@@ -50,9 +52,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #               xh, B, C, a, Bb, S, d_inner, N, H, K, dtype, vec, stream)
 CONV_ARGTYPES = [_P, _L, _L, _P, _L, _L] + [_P] * 8 + [_I] * 8 + [_P]
 # ssm_gated_norm(y, xh, z, z_sb, z_ss, D, scale, out, Bb, S, d_inner, P, eps,
-#                dtype, vec, stream)
+#                dtype, vec, gate_first, stream)
 NORM_ARGTYPES = [_P, _P, _P, _L, _L, _P, _P, _P] + [_I] * 4 + [ctypes.c_float] + \
-    [_I] * 2 + [_P]
+    [_I] * 3 + [_P]
 
 
 def decay(dt, dt_bias, A_log):
@@ -102,16 +104,21 @@ def conv_prep_ref(xbc, dt, conv_w, conv_b, dt_bias, A_log, *, head_dim):
     return xh.contiguous(), B.contiguous(), C.contiguous(), a.contiguous()
 
 
-def gated_norm_ref(y, xh, z, D, norm_scale, eps):
+def gated_norm_ref(y, xh, z, D, norm_scale, eps, gate_first=False):
     """The plain version of :func:`gated_norm`: the D skip and the gated
-    RMS norm (mamba2) in float32, returned in z's dtype, (Bb, S, d_inner)."""
+    RMS norm in float32, returned in z's dtype, (Bb, S, d_inner): the norm
+    then the gate (mamba2 here), or with ``gate_first`` the gate then the
+    norm."""
     f32 = torch.float32
     bsz, s = xh.shape[:2]
     y = y + D[None, None, :, None] * xh.to(f32)
     y = y.reshape(bsz, s, -1)
+    if gate_first:
+        y = y * F.silu(z.to(f32))
     y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + eps)
     y = y * (1.0 + norm_scale.to(f32))
-    y = y * F.silu(z.to(f32))
+    if not gate_first:
+        y = y * F.silu(z.to(f32))
     return y.to(z.dtype)
 
 
@@ -232,15 +239,16 @@ def conv_prep(xbc, dt, conv_w, conv_b, dt_bias, A_log, *, head_dim):
     return xh, B, C, a
 
 
-def gated_norm(y, xh, z, D, norm_scale, *, eps):
+def gated_norm(y, xh, z, D, norm_scale, *, eps, gate_first=False):
     """y, xh: (Bb, S, H, P) contiguous (K3's output and its x); z: (Bb, S,
     H * P), unit channel stride (a view of the in-projection's output); D
-    (H,) float32; norm_scale (H * P,). Returns (Bb, S, H * P) in z's
+    (H,) float32; norm_scale (H * P,); ``gate_first``: the gate before the
+    norm (the kernel's other instantiation). Returns (Bb, S, H * P) in z's
     dtype."""
     kernel = use_kernel(y, xh, z, D, norm_scale)
     _check_gated_norm(y, xh, z, D, norm_scale, layout=kernel)
     if not kernel:
-        return gated_norm_ref(y, xh, z, D, norm_scale, eps)
+        return gated_norm_ref(y, xh, z, D, norm_scale, eps, gate_first)
     bsz, s, h, p = xh.shape
     d_inner = h * p
     per = 16 // xh.element_size()
@@ -254,7 +262,8 @@ def gated_norm(y, xh, z, D, norm_scale, *, eps):
         fn = build.entry("ssm_pointwise", "ssm_gated_norm", NORM_ARGTYPES)
         err = fn(y.data_ptr(), xh.data_ptr(), z.data_ptr(), z.stride(0), z.stride(1),
                  D.data_ptr(), norm_scale.data_ptr(), out.data_ptr(), bsz, s, d_inner, p,
-                 eps, _DTYPE_CODES[z.dtype], 1 if vec else 0, _stream())
+                 eps, _DTYPE_CODES[z.dtype], 1 if vec else 0, 1 if gate_first else 0,
+                 _stream())
     if err != 0:
         raise RuntimeError(f"ssm_gated_norm kernel launch failed: CUDA error {err}")
     gated_norm.launches += 1

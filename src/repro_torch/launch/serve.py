@@ -52,7 +52,7 @@ import threading
 import numpy as np
 import torch.distributed as dist
 
-from ..configs.base import ARCH_IDS, get_config
+from ..configs.base import ARCH_IDS, PORT_ARCH_IDS, get_config
 from ..device import resolve_device
 from ..models import transformer as T
 from ..obs.export import NdjsonExporter, to_prometheus
@@ -229,7 +229,7 @@ async def _driver_demo(driver: ServeDriver, n_requests: int, seq_len: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS + PORT_ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mode", choices=["ar", "diffusion"], default="diffusion")
     ap.add_argument("--transport", choices=["sync", "driver", "http"],

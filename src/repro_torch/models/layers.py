@@ -1,8 +1,9 @@
 """Backbone building blocks: norms, RoPE, attention (GQA/MQA, sliding
-window, per-row key masking, logit softcap, the KV cache and its
-sliding-window ring, cross-attention; kernel K2 on request), GLU MLPs, the
-top-k capacity MoE (GShard one-hot or slot-table dispatch, with its aux
-losses) and the diffusion time embedding.
+window, per-row key masking, logit softcap, no position embedding and a
+softmax scale of the config's, the KV cache and its sliding-window ring,
+cross-attention; kernel K2 on request), GLU MLPs, the top-k capacity MoE
+(GShard one-hot or slot-table dispatch, with its aux losses; a shared
+expert beside the routed ones) and the diffusion time embedding.
 
 The counterpart of ``repro.models.layers``.
 Plain functions over parameter dicts with the reference's layouts: weights
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
+from ..obs.trace import NULL_TRACER
 from ..sharding import tensor_parallel as TP
 
 
@@ -82,13 +84,14 @@ def _repeat_kv(k, n_rep: int):
     return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
-def attention_scores(q, k, v, mask, softcap: float = 0.0):
+def attention_scores(q, k, v, mask, softcap: float = 0.0, scale=None):
     """q: (B,Sq,H,D), k/v: (B,Sk,H,D) (already GQA-expanded); mask
-    broadcastable to (B, H, Sq, Sk), True = attend. Float32 logits and
-    softmax; the probabilities are cast to v's dtype before the PV product."""
+    broadcastable to (B, H, Sq, Sk), True = attend. Float32 logits times
+    ``scale`` (None: divided by sqrt(D)) and softmax; the probabilities are
+    cast to v's dtype before the PV product."""
     d = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
+    logits = logits / math.sqrt(d) if scale is None else logits * scale
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     logits = logits.masked_fill(~mask, -1e30)
@@ -154,6 +157,8 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
               cache=None, cache_index=None, kv_override=None,
               return_kv: bool = False, valid_len=None, use_kernels=False):
     """Multi-head attention with GQA + RoPE + optional SWA and a KV cache.
+    ``cfg.pos_embedding`` "none" leaves q and k unrotated (NoPE), and
+    ``cfg.attn_scale``, when set, is the softmax scale on both routes.
 
     cache: None (a full sequence) or ``{"k", "v"}`` of shape (B, S_cache,
     KV, D): decode writes this step's post-RoPE k and v into it IN PLACE at
@@ -197,13 +202,16 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
         k, v, k0 = kv_override if len(kv_override) == 3 else (*kv_override, 0)
         k, v = _kv_for_heads(k, v, k0, q0, q.shape[2], n_rep)
         mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool, device=x.device)
-        out = attention_scores(q, k, v, mask, cfg.logit_softcap)
+        out = attention_scores(q, k, v, mask, cfg.logit_softcap, cfg.attn_scale or None)
         return TP.linear(out.reshape(b, s, -1), params["wo"], x_split=q_split)[0], None
     k, k0 = head_block(x, params["wk"], cfg.n_kv_heads, hd, q_split)
     v, _ = head_block(x, params["wv"], cfg.n_kv_heads, hd, q_split)
-    cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.pos_embedding == "rope":
+        cos, sin = rope_frequencies(hd, positions, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    elif cfg.pos_embedding != "none":
+        raise ValueError(f"pos_embedding must be rope or none, got {cfg.pos_embedding!r}")
 
     new_cache = None
     if return_kv and cache is None:
@@ -233,8 +241,8 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
         if cfg.logit_softcap:
             raise ValueError("kernel K2 has no logit softcap; run "
                              f"{cfg.name} with use_kernels=False")
-        out = ops.flash_attention(q, k, v, causal=causal,
-                                  window=cfg.sliding_window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                                  scale=cfg.attn_scale or None)
         return matmul(out.reshape(b, s, cfg.q_dim), params["wo"]), new_cache
     k, v = _kv_for_heads(k, v, k0, q0, q.shape[2], n_rep)
     if cache is not None:
@@ -245,7 +253,7 @@ def attention(params, cfg: ModelConfig, x, positions, *, causal=True,
             kv_valid = torch.arange(s, device=x.device)[None, :] < valid_len[:, None]
         mask = make_attention_mask(positions, positions, causal,
                                    cfg.sliding_window, kv_valid=kv_valid)
-    out = attention_scores(q, k, v, mask, cfg.logit_softcap)
+    out = attention_scores(q, k, v, mask, cfg.logit_softcap, cfg.attn_scale or None)
     return TP.linear(out.reshape(b, s, -1), params["wo"], x_split=q_split)[0], new_cache
 
 
@@ -282,8 +290,9 @@ def _kv_for_heads(k, v, k0: int, q0: int, nq: int, n_rep: int):
 
 
 # --------------------------------------------------------------------- MLPs
-def init_mlp(gen, cfg: ModelConfig, dtype, device):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, dtype, device, d_ff: int = 0):
+    """A GLU MLP's weights of width ``d_ff`` (0: ``cfg.d_ff``)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     s = 1.0 / math.sqrt(d)
     n = lambda shape: torch.randn(shape, generator=gen, device=device)
     p = {"w_up": (n((d, f)) * s).to(dtype),
@@ -312,16 +321,21 @@ def mlp(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------- MoE
 def init_moe(gen, cfg: ModelConfig, dtype, device):
     """Router (d, E) in float32; ``w_gate``/``w_up`` (E, d, f) and
-    ``w_down`` (E, f, d) in ``dtype``, with the reference's scales."""
+    ``w_down`` (E, f, d) in ``dtype``, with the reference's scales; with
+    ``cfg.moe.shared_ff``, a shared expert ``shared`` (an MLP of that
+    width, :func:`init_mlp`), drawn after them."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     s = 1.0 / math.sqrt(d)
     n = lambda shape: torch.randn(shape, generator=gen, device=device)
-    return {
+    p = {
         "router": (n((d, e)) * s).to(torch.float32),
         "w_gate": (n((e, d, f)) * s).to(dtype),
         "w_up": (n((e, d, f)) * s).to(dtype),
         "w_down": (n((e, f, d)) * s / math.sqrt(2 * cfg.n_layers)).to(dtype),
     }
+    if cfg.moe.shared_ff:
+        p["shared"] = init_mlp(gen, cfg, dtype, device, cfg.moe.shared_ff)
+    return p
 
 
 def moe_route(params, cfg: ModelConfig, x) -> dict:
@@ -374,60 +388,79 @@ def _experts(params, xin):
     return out.reshape(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
 
 
-def _dispatch_einsum(params, x, r):
+def _dispatch_einsum(params, x, r, tracer=NULL_TRACER):
     """GShard one-hot dispatch: a (B, S, E, C) dispatch tensor gathers the
     slots by a product, and a combine tensor of the gate values scatters
-    the experts' outputs back by another."""
+    the experts' outputs back by another. Spans ``dispatch`` (both tensors
+    and the gathering product), ``experts`` and ``combine``."""
     b, s, d = x.shape
     e, cap = r["gates"].shape[-1], r["cap"]
-    within = r["within_cap"]
-    choice = F.one_hot(r["gate_idx"], e).to(torch.float32)               # (B,S,k,E)
-    pos_onehot = F.one_hot(torch.where(within, r["pos"], 0), cap).to(torch.float32)
-    disp_k = choice[..., None] * pos_onehot[..., None, :] * within[..., None, None]
-    dispatch = disp_k.sum(2)                                              # (B,S,E,C)
-    combine = torch.einsum("bsk,bskec->bsec", r["gate_vals"], disp_k)
-    xin = torch.bmm(dispatch.to(x.dtype).reshape(b, s, e * cap).transpose(1, 2), x)
-    out_e = _experts(params, xin.reshape(b, e, cap, d))
-    out = torch.bmm(combine.to(x.dtype).reshape(b, s, e * cap), out_e)
+    with tracer.span("dispatch"):
+        within = r["within_cap"]
+        choice = F.one_hot(r["gate_idx"], e).to(torch.float32)           # (B,S,k,E)
+        pos_onehot = F.one_hot(torch.where(within, r["pos"], 0), cap).to(torch.float32)
+        disp_k = choice[..., None] * pos_onehot[..., None, :] * within[..., None, None]
+        dispatch = disp_k.sum(2)                                          # (B,S,E,C)
+        combine = torch.einsum("bsk,bskec->bsec", r["gate_vals"], disp_k)
+        xin = torch.bmm(dispatch.to(x.dtype).reshape(b, s, e * cap).transpose(1, 2), x)
+    with tracer.span("experts"):
+        out_e = _experts(params, xin.reshape(b, e, cap, d))
+    with tracer.span("combine"):
+        out = torch.bmm(combine.to(x.dtype).reshape(b, s, e * cap), out_e)
     return out, dispatch.sum(-1).mean((0, 1))
 
 
-def _dispatch_gather(params, x, r):
+def _dispatch_gather(params, x, r, tracer=NULL_TRACER):
     """Slot-table dispatch: each kept (token, choice) writes its token id
     into slot ``expert * C + pos`` of an (E * C + 1)-slot table (dropped
     pairs into the last, a dustbin cut off after), the experts read their
     slots by a gather, and each token gathers its k outputs back, weighted
-    by its gates (a dropped pair reads slot 0 at weight 0)."""
+    by its gates (a dropped pair reads slot 0 at weight 0). Spans
+    ``dispatch`` (the table and the gather), ``experts`` and ``combine``."""
     b, s, d = x.shape
     e, cap = r["gates"].shape[-1], r["cap"]
     k = r["gate_idx"].shape[-1]
-    valid = r["within_cap"].reshape(b, s * k)
-    flat_slot = (r["gate_idx"] * cap + r["pos"]).reshape(b, s * k)
-    tok_ids = torch.arange(s, device=x.device)[None, :, None].expand(b, s, k).reshape(b, s * k)
-    slot = torch.where(valid, flat_slot, e * cap)
-    table = torch.zeros((b, e * cap + 1), dtype=torch.long, device=x.device)
-    table = table.scatter(1, slot, torch.where(valid, tok_ids, 0))[:, :-1]
-    occupied = torch.zeros((b, e * cap + 1), dtype=torch.bool, device=x.device)
-    occupied = occupied.scatter(1, slot, valid)[:, :-1]
-    xin = torch.gather(x, 1, table[..., None].expand(b, e * cap, d))
-    xin = torch.where(occupied[..., None], xin, 0)
-    out_e = _experts(params, xin.reshape(b, e, cap, d))
-    gflat = torch.where(valid, flat_slot, 0)
-    got = torch.gather(out_e, 1, gflat[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
-    w = (r["gate_vals"] * r["within_cap"]).to(got.dtype)
-    out = torch.einsum("bsk,bskd->bsd", w, got)
+    with tracer.span("dispatch"):
+        valid = r["within_cap"].reshape(b, s * k)
+        flat_slot = (r["gate_idx"] * cap + r["pos"]).reshape(b, s * k)
+        tok_ids = torch.arange(s, device=x.device)[None, :, None].expand(b, s, k).reshape(
+            b, s * k)
+        slot = torch.where(valid, flat_slot, e * cap)
+        table = torch.zeros((b, e * cap + 1), dtype=torch.long, device=x.device)
+        table = table.scatter(1, slot, torch.where(valid, tok_ids, 0))[:, :-1]
+        occupied = torch.zeros((b, e * cap + 1), dtype=torch.bool, device=x.device)
+        occupied = occupied.scatter(1, slot, valid)[:, :-1]
+        xin = torch.gather(x, 1, table[..., None].expand(b, e * cap, d))
+        xin = torch.where(occupied[..., None], xin, 0)
+    with tracer.span("experts"):
+        out_e = _experts(params, xin.reshape(b, e, cap, d))
+    with tracer.span("combine"):
+        gflat = torch.where(valid, flat_slot, 0)
+        got = torch.gather(out_e, 1, gflat[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
+        w = (r["gate_vals"] * r["within_cap"]).to(got.dtype)
+        out = torch.einsum("bsk,bskd->bsd", w, got)
     frac = (F.one_hot(r["gate_idx"], e) * r["within_cap"][..., None]).sum(2)
     return out, frac.to(torch.float32).mean((0, 1))
 
 
-def moe(params, cfg: ModelConfig, x):
+def moe(params, cfg: ModelConfig, x, tracer=NULL_TRACER):
     """Top-k capacity-based MoE (GShard/Switch) over x (B, S, d). Two
     dispatch modes, as the reference's (``cfg.moe_dispatch``): "einsum"
     (one-hot dispatch and combine products) and "gather" (a slot table,
     gathers in and out). Both drop the same (token, choice) pairs and agree
-    to rounding. Returns ``(out, {"moe_lb", "moe_z"})``: the load-balance
-    loss ``E * sum(mean gate * share dispatched)`` and the router z-loss
-    ``mean(logsumexp(logits)^2)``, each times its coefficient.
+    to rounding. With ``cfg.moe.shared_ff`` a shared expert (:func:`mlp`
+    over ``params["shared"]``) sees every token and its output is added
+    to the routed experts'. Returns ``(out, {"moe_lb", "moe_z"})``: the
+    load-balance loss ``E * sum(mean gate * share dispatched)`` and the
+    router z-loss ``mean(logsumexp(logits)^2)``, each times its
+    coefficient (the shared expert takes no part in them).
+
+    ``tracer``: spans ``route``, then ``dispatch``, ``experts`` and
+    ``combine`` (:func:`_dispatch_einsum`, :func:`_dispatch_gather`), then
+    ``shared``; a tracer other than ``NULL_TRACER`` also counts into its
+    registry ``moe_expert_slots_total`` (B E C, the slots the experts
+    compute) and ``moe_routed_pairs_total`` (B S k, the (token, choice)
+    pairs routed), both known on the host.
 
     On a mesh the rows are this rank's block of the batch, so the batch dim
     is split over the batch axes (``cfg.act_shard_axes`` pins it there: the
@@ -436,13 +469,23 @@ def moe(params, cfg: ModelConfig, x):
     over the whole batch (``batch_mean``)."""
     mcfg = cfg.moe
     ax = TP.axes_of(params["router"])
-    r = moe_route(params, cfg, x)
+    with tracer.span("route"):
+        r = moe_route(params, cfg, x)
+    if tracer is not NULL_TRACER:
+        b, s, k = r["gate_idx"].shape
+        tracer.registry.counter("moe_expert_slots_total", "expert slots computed (B E C)").inc(
+            b * mcfg.num_experts * r["cap"])
+        tracer.registry.counter("moe_routed_pairs_total", "(token, choice) pairs routed "
+                                "(B S k)").inc(b * s * k)
     if cfg.moe_dispatch == "gather":
-        out, frac_dispatched = _dispatch_gather(params, x, r)
+        out, frac_dispatched = _dispatch_gather(params, x, r, tracer)
     elif cfg.moe_dispatch == "einsum":
-        out, frac_dispatched = _dispatch_einsum(params, x, r)
+        out, frac_dispatched = _dispatch_einsum(params, x, r, tracer)
     else:
         raise ValueError(f"moe_dispatch must be einsum or gather, got {cfg.moe_dispatch!r}")
+    if mcfg.shared_ff:
+        with tracer.span("shared"):
+            out = out + mlp(params["shared"], cfg, x)
     me = TP.batch_mean(r["gates"].mean((0, 1)), ax)
     frac_dispatched = TP.batch_mean(frac_dispatched, ax)
     lb_loss = mcfg.num_experts * (me * frac_dispatched).sum() * mcfg.load_balance_loss

@@ -144,7 +144,8 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     causal convolution, the split into K3's operands: one kernel on the
     kernel route); ``scan`` (K3, :func:`ssd_chunked` or the decode update
     alone); ``post`` (the D skip, the gated RMS norm, the cast: one kernel
-    on the kernel route); ``out_proj``."""
+    on the kernel route; the gate before the norm where ``cfg.ssm.gate_first``
+    says so); ``out_proj``."""
     bsz, s, _ = x.shape
     scfg = cfg.ssm
     d_inner, n_heads = ssm_dims(cfg)
@@ -192,9 +193,10 @@ def ssm_forward(params, cfg: ModelConfig, x, *, cache=None, use_kernels: bool = 
     with tracer.span("post"):
         if kernels:
             y = ops.ssm_gated_norm(y, xh, z, params["D"], params["norm_scale"],
-                                   eps=cfg.norm_eps)
+                                   eps=cfg.norm_eps, gate_first=scfg.gate_first)
         else:
-            y = SP.gated_norm_ref(y, xh, z, params["D"], params["norm_scale"], cfg.norm_eps)
+            y = SP.gated_norm_ref(y, xh, z, params["D"], params["norm_scale"], cfg.norm_eps,
+                                  scfg.gate_first)
     with tracer.span("out_proj"):
         out, _ = TP.linear(y, params["out_proj"])
     return out, {"conv": conv_state, "state": state}

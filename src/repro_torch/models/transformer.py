@@ -262,11 +262,15 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
     projected here with the placed ``cross`` weights; ``cross_out``, a
     list, then receives the projection (prefill's cross cache).
 
+    Each branch adds ``cfg.residual_multiplier`` times its output
+    (:func:`_residual`).
+
     ``tracer``: spans named by the layer's parts, without its index:
     ``layer.norm`` (each RMS norm), ``layer.ssm`` or ``layer.attn`` (the
     mixer and its residual; the SSM mixer's own parts nest in it, see
     :func:`repro_torch.models.ssm.ssm_forward`), ``layer.cross`` and
-    ``layer.mlp`` or ``layer.moe``."""
+    ``layer.mlp`` or ``layer.moe`` (the MoE's parts nest in it, see
+    :func:`repro_torch.models.layers.moe`)."""
     mixer, mlpk = _layer_kind(cfg, i)
     if sharded:
         bp = TP.place_tree(bp)
@@ -280,33 +284,39 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
         with tracer.span("layer.ssm"):
             out, nc = S.ssm_forward(bp["ssm"], cfg, hn, cache=cache,
                                     use_kernels=use_kernels, tracer=tracer)
-            h = h + out
+            h = _residual(cfg, h, out)
     else:
         with tracer.span("layer.attn"):
             out, nc = L.attention(bp["attn"], cfg, hn, positions, causal=causal,
                                   cache=cache, cache_index=cache_index,
                                   return_kv=collect_kv, valid_len=valid_len,
                                   use_kernels=use_kernels)
-            h = h + out
+            h = _residual(cfg, h, out)
     if cross is not None:
         with tracer.span("layer.norm"):
             hx = L.rms_norm(h, bp["norm_x"], cfg.norm_eps)
         with tracer.span("layer.cross"):
             out, _ = L.attention(bp["cross"], cfg, hx, positions, causal=False,
                                  kv_override=(cross["k"], cross["v"], cross.get("k0", 0)))
-            h = h + out
+            h = _residual(cfg, h, out)
     if mlpk != "none":
         with tracer.span("layer.norm"):
             hn = L.rms_norm(h, bp["norm2"], cfg.norm_eps)
         if mlpk == "dense":
             with tracer.span("layer.mlp"):
-                h = h + L.mlp(bp["mlp"], cfg, hn)
+                h = _residual(cfg, h, L.mlp(bp["mlp"], cfg, hn))
         else:
             with tracer.span("layer.moe"):
-                out, moe_aux = L.moe(bp["moe"], cfg, hn)
-                h = h + out
+                out, moe_aux = L.moe(bp["moe"], cfg, hn, tracer)
+                h = _residual(cfg, h, out)
             _add_aux(aux, moe_aux)
     return h, nc
+
+
+def _residual(cfg: ModelConfig, h, out):
+    """``h + residual_multiplier * out``, one rounding (no multiply at 1)."""
+    m = cfg.residual_multiplier
+    return h + out if m == 1.0 else torch.add(h, out, alpha=m)
 
 
 def _add_aux(aux: dict, new: dict) -> None:
@@ -361,7 +371,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     diffusion time, its embedding added at every position. prefix: (B, P,
     d_model) image-patch embeddings of a vlm arch, put in front of the
     token embeddings (not of ``embeds``, and not in decode), so positions
-    and outputs run over P + S. frames: (B, F, d_model) encoder inputs,
+    and outputs run over P + S. The input stream is the embeddings (or
+    ``embeds``) times ``cfg.embedding_multiplier``, then the time
+    embedding; the logits are divided by ``cfg.logits_scaling``. frames: (B, F, d_model) encoder inputs,
     required by an encdec arch in train and prefill mode (the encoder runs
     on them; decode reads the cache's cross k and v instead). mode:
     "train" (full sequence, cache None), "prefill" (full sequence; the
@@ -400,12 +412,12 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     dtype = _dtype(cfg)
     if causal is None:
         causal = cfg.objective != "diffusion"
-    if embeds is not None:
-        h = embeds.to(dtype)
-    else:
-        h = TP.embedding(TP.place(params["embed"]), tokens).to(dtype)
-        if cfg.arch_type == "vlm" and mode != "decode" and prefix is not None:
-            h = torch.cat([prefix.to(dtype), h], dim=1)
+    h = embeds if embeds is not None else TP.embedding(TP.place(params["embed"]), tokens)
+    if cfg.embedding_multiplier != 1.0:
+        h = h * cfg.embedding_multiplier
+    h = h.to(dtype)
+    if embeds is None and cfg.arch_type == "vlm" and mode != "decode" and prefix is not None:
+        h = torch.cat([prefix.to(dtype), h], dim=1)
     b, s, _ = h.shape
     if mode == "decode":
         if cache is None or s != 1:
@@ -479,6 +491,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     if logits:
         head = lm_head(params, cfg)
         lg, split = TP.linear(h.to(torch.float32), TP.cast(head, torch.float32))
+        if cfg.logits_scaling != 1.0:
+            lg = lg / cfg.logits_scaling
         if cfg.logit_softcap:
             lg = cfg.logit_softcap * torch.tanh(lg / cfg.logit_softcap)
         out["logits"] = lg

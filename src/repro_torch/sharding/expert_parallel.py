@@ -41,6 +41,9 @@ def moe_expert_parallel(params, cfg: ModelConfig, x, mesh, axis: str = "data"):
     reference's ``pmean``), the same on every rank.
     """
     mcfg = cfg.moe
+    if mcfg.shared_ff:
+        raise ValueError("expert parallelism routes the routed experts only; a shared "
+                         "expert (moe.shared_ff) runs in layers.moe")
     n_shards = axis_sizes(mesh)[axis]
     me = mesh.get_local_rank(axis)
     group = mesh.get_group(axis)

@@ -13,7 +13,8 @@ float32 and 2e-2 bf16, K3 2e-4 float32 and 5e-2 bf16: other summation
 orders, a bf16 rounding of the output that a last-bit difference can flip;
 K3 float32 at mamba2's full width and over four chunks at its widths adds
 an absolute term of 1e-5 x max|want|, sums of 256 x 128 terms on outputs
-of order hundreds). Each case checks that its route's launch count, and
+of order hundreds); K2 also with a softmax scale given (granite's 1/128 at
+its GQA 32/8 shape). Each case checks that its route's launch count, and
 only that, went up: bf16 operands that TMA can describe run
 K2's and K3's wgmma kernels, other bf16 (D 32, odd widths, unaligned views)
 their mma.sync kernels; float32 with 16-byte aligned bases (K3: P and N
@@ -29,8 +30,10 @@ B and C within one rounding of the dtype of the same sums in float64
 (bf16 rtol 2^-7, atol 1e-5; float32 1e-5) and within the plain chain's
 own rounding error (it rounds each of K products and K sums), its decay a
 at rtol 1e-5; ``post`` within one rounding of its plain version (the
-mean's summation order, rsqrtf). A one-shot sample of the reduced mamba2
-launches each pass and K3 once a layer and NFE.
+mean's summation order, rsqrtf), in both orders of gate and norm at
+granite-4.0-h-small's width too. A one-shot sample of the reduced mamba2
+launches each pass and K3 once a layer and NFE; the reduced granite's
+forward on the kernel route is held to its plain route (1e-3).
 
 The training slice's card tests: a float32 train step against the CPU
 (loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
@@ -446,6 +449,91 @@ def test_cuda_ssm_gated_norm_matches_plain(cuda, b, s, h, p, n, k, extra, dtype)
     assert out.dtype == dtype and out.shape == want.shape
     tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("gate_first", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssm_gated_norm_at_granite_width(cuda, dtype, gate_first):
+    """Both orders of the ``post`` pass (the gate-first instantiation is
+    granite-4.0-h-small's) at granite's one-shot shape, Bb 16, S 256,
+    d_inner 8192 (128 heads of 64), z a view of the in-projection's output:
+    within one rounding of the plain version of the same order, as above
+    (rtol 2^-7, atol 1e-5 in bf16; rtol = atol = 1e-5 in float32)."""
+    from repro_torch.kernels import ssm_pointwise as SP
+    b, s, h, p = 16, 256, 128, 64
+    z, _, _, _ = _pw_operands(cuda, b, s, h, p, 128, 4, 0, dtype)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    y = torch.randn((b, s, h, p), generator=g, device=cuda).to(dtype)
+    xh = torch.randn((b, s, h, p), generator=g, device=cuda).to(dtype)
+    D = torch.randn(h, generator=g, device=cuda)
+    scale = (torch.randn(h * p, generator=g, device=cuda) * 0.1).to(dtype)
+    before = SP.gated_norm.launches
+    out = SP.gated_norm(y, xh, z, D, scale, eps=1e-5, gate_first=gate_first)
+    assert SP.gated_norm.launches == before + 1
+    want = SP.gated_norm_ref(y, xh, z, D, scale, 1e-5, gate_first)
+    other = SP.gated_norm_ref(y, xh, z, D, scale, 1e-5, not gate_first)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == want.shape
+    tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    assert not torch.allclose(out.float(), other.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,window,scale", [
+    (4, 256, 32, 8, 128, 0, 0.0078125),   # granite-4.0-h-small's: GQA 32/8, scale 1/128
+    (2, 100, 8, 1, 64, 16, 0.3),          # MQA with a window, another scale
+])
+def test_cuda_flash_attention_takes_a_scale(cuda, b, s, h, kv, d, window, scale, dtype):
+    """K2 with the softmax scale given, bidirectional, against the plain
+    version at that scale (the JAX tests' tolerance, 2e-5 float32 and 2e-2
+    bf16); its output moves off the default scale's."""
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    n = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)
+    q, k, v = n(b, s, h, d), n(b, s, kv, d), n(b, s, kv, d)
+    before, routes = FA.flash_attention.launches, dict(FA.flash_attention.route_launches)
+    got = FA.flash_attention(q, k, v, causal=False, window=window, scale=scale)
+    _launched_once(FA.flash_attention, _fa_route(dtype, d), before, routes)
+    want = ref.flash_attention_ref(q, k, v, causal=False, window=window, scale=scale)
+    default = ref.flash_attention_ref(q, k, v, causal=False, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype, 2e-5, 2e-2))
+    assert not torch.allclose(got.float(), default.float(), rtol=0.1, atol=0.1)
+
+
+def test_cuda_tiny_granite_kernel_route_matches_plain(cuda):
+    """The reduced float32 granite-4.0-h-small (10 layers: 9 SSD mixers,
+    their norm gate-first, and one NoPE attention layer at softmax scale
+    1/128; every layer a MoE with a shared expert; the muP multipliers) on
+    the kernel route against the plain route on the card: K2 once, K3 and
+    each SSM pass 9 times a forward, K2 and K3 on their 3xTF32 routes; eps
+    within 1e-3 (K2 and K3 in three TF32 products, the conv pass summing
+    its taps in float32 once, over ten layers), the plain route launching
+    none."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_pointwise as SP
+    from repro_torch.models.transformer import forward, init_params
+    cfg = get_config("granite_4p0_h_small").reduced().with_(objective="diffusion")
+    params = init_params(cfg, 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn((2, 64, cfg.d_model), generator=g, device=cuda)
+    t = torch.tensor([0.8, 0.3], device=cuda)
+    counts = lambda: (FA.flash_attention.launches, SS.ssd_scan.launches,
+                      SP.conv_prep.launches, SP.gated_norm.launches)
+    eps = {}
+    for use_kernels, want in ((True, (1, 9, 9, 9)), (False, (0, 0, 0, 0))):
+        before = counts()
+        k2_routes, k3_routes = (dict(FA.flash_attention.route_launches),
+                                dict(SS.ssd_scan.route_launches))
+        with torch.no_grad():
+            eps[use_kernels] = forward(params, cfg, embeds=x, t_cond=t, logits=False,
+                                       use_kernels=use_kernels)["eps"]
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+        if use_kernels:
+            assert FA.flash_attention.route_launches["tf32x3"] == k2_routes["tf32x3"] + 1
+            assert SS.ssd_scan.route_launches["tf32x3"] == k3_routes["tf32x3"] + 9
+    torch.testing.assert_close(eps[True], eps[False], rtol=1e-3, atol=1e-3)
 
 
 def test_cuda_ssm_passes_reject_what_they_do_not_take(cuda):

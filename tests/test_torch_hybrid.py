@@ -31,6 +31,7 @@ from repro_torch.launch.serve import main
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import layers_per_block, params_from_numpy, params_to_numpy
 from repro_torch.serving.engine import DiffusionServeEngine, Request
+from test_torch_configs import as_reference
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 NEW = ["mixtral_8x7b", "grok_1_314b", "jamba_1p5_large"]
@@ -50,7 +51,7 @@ def test_configs_match_reference(arch):
         r, p = ref_get_config(arch), get_config(arch)
         if not full:
             r, p = r.reduced(), p.reduced()
-        assert dataclasses.asdict(p) == dataclasses.asdict(r)
+        assert as_reference(p) == dataclasses.asdict(r)
 
 
 @pytest.mark.parametrize("arch", ["jamba_1p5_large", "mixtral_8x7b", "grok_1_314b",

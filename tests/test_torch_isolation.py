@@ -47,6 +47,7 @@ def test_port_has_the_slice_modules():
                 "configs/jamba_1p5_large.py", "configs/whisper_tiny.py",
                 "configs/paligemma_3b.py", "configs/glm4_9b.py",
                 "configs/granite_3_8b.py", "configs/cifar10_scorenet.py",
+                "configs/granite_4p0_h_small.py",
                 "training/optimizer.py", "data/pipeline.py", "launch/train.py",
                 "diffusion/analytic.py", "diffusion/score_net.py",
                 "core/likelihood.py", "core/matrix_sde.py", "launch/mesh.py",

@@ -1,6 +1,6 @@
 """The port's span tracer (``repro_torch.obs.trace``) and the one-shot
 path's spans: ``sample_tokens`` > ``sample.step`` > ``eps`` > the layers'
-spans > the SSM mixer's parts, and ``decode``.
+spans > the SSM mixer's and the MoE's parts, and ``decode``.
 
 What is held: dotted paths and nesting; ``NULL_TRACER`` records nothing and
 enters no ``torch.profiler`` range; ``annotate=True`` puts each span in a
@@ -25,6 +25,8 @@ ROOT = "sample_tokens"
 STEP = f"{ROOT}.sample.step"
 EPS = f"{STEP}.eps"
 SSM_PARTS = ("in_proj", "pre", "scan", "post", "out_proj")
+# the MoE layer's spans (a shared expert adds "shared"; mixtral has none)
+MOE_PARTS = ("route", "dispatch", "experts", "combine")
 
 
 def _setup(arch="mamba2_2p7b", solver="tab3", fused=True):
@@ -138,7 +140,8 @@ def _expected_tree(layer_spans):
 @pytest.mark.parametrize("arch,layer_spans", [
     ("mamba2_2p7b", ["layer.norm", "layer.ssm"] + [f"layer.ssm.{p}" for p in SSM_PARTS]),
     ("gemma_2b", ["layer.norm", "layer.attn", "layer.mlp"]),
-    ("mixtral_8x7b", ["layer.norm", "layer.attn", "layer.moe"]),
+    ("mixtral_8x7b", ["layer.norm", "layer.attn", "layer.moe"]
+     + [f"layer.moe.{p}" for p in MOE_PARTS]),
 ])
 def test_span_tree_of_the_one_shot_path(arch, layer_spans):
     cfg, params, plan, sde = _setup(arch)
