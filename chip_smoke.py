@@ -8,8 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Device: the card's name, count, ``nvidia-smi`` name and power limit;
    TF32 off for float32 matmuls and convolutions.
-2. Build: kernels K2 and K3 and the SSM mixer's passes (CUDA C++,
-   ``src/repro_torch/kernels/csrc``) compiled by nvcc for sm_90a into
+2. Build: kernels K2 and K3, the SSM mixer's passes and the MoE's four
+   kernels (CUDA C++, ``src/repro_torch/kernels/csrc``) compiled by nvcc for sm_90a into
    ``build/kernels``, one nvcc per source, started together. Each source holds four kernels, one per route: wgmma
    (bf16 that TMA can describe), mma_sync (other bf16), tf32x3 (float32
    with 16-byte aligned bases; K3: P and N multiples of 8) and cuda_cores
@@ -68,6 +68,16 @@ Phases (any failure raises and the script exits non-zero):
    the same order. Then each kernel timed in turns beside its plain
    version and its byte bound (the gate-first norm at granite's shape, its
    own row ``ssm_post_gate_first`` in the kernel table).
+5a'. The MoE layer's four kernels (``phase_moe_dispatch``,
+   ``kernels/moe_dispatch.py``: ``moe_route``, ``moe_gather``, ``moe_glu``,
+   ``moe_combine``) at granite-4.0-h-small's and mixtral-8x7b's one-shot
+   shapes, with every token on the same experts, and at odd widths, in
+   float32 and bf16: the route's choices, places, slots and table bitwise
+   its plain version's, its gates within float32 rounding; the gather
+   bitwise; the GLU and the combine (with and without the shared addend)
+   within one rounding. Then each kernel timed in turns beside its plain
+   version and its byte bound at granite's shape (its own kernel-table
+   row).
 5b. Scaling (``phase_scaling``): the bf16 wgmma and mma_sync kernels in
    turns at B 4, 8, 16, 32 of gemma's and whisper's attention and Bb 4, 8,
    16 of mamba2's scan, each time beside B 4's.
@@ -130,8 +140,9 @@ Phases (any failure raises and the script exits non-zero):
    6 through ``DiffusionServeEngine`` (K1 launches = ``ab`` group steps and
    no new executor warm, asserted; tokens/s; stacked-vs-solo share); (b)
    the one-shot kernel path of phase 7 (8 x 10 = 80 K2 launches, all on the
-   wgmma route, asserted), the eps forward per NFE on both routes for both
-   MoE dispatch modes, and the kernel route's device time by part (expert
+   wgmma route, and 80 of each MoE kernel, asserted), the eps forward per
+   NFE on both routes for both MoE dispatch modes (the kernel route has one
+   algorithm: the two read alike), and the kernel route's device time by part (expert
    GEMMs, attention GEMMs, MoE routing and dispatch, K2, other), idle share
    and peak memory; (c) AR decode as phase 9 at capacity_factor 100 (no
    drops: prefill, decode and the full forward route alike).
@@ -147,9 +158,10 @@ Phases (any failure raises and the script exits non-zero):
    multipliers; vocab 100352; 32.2 B parameters, 64.5 GB in bf16), random
    weights from seed 0: the one-shot kernel path of phase 7 (K2 4 x 10 =
    40 launches, K3 and each SSM pass 36 x 10 = 360, all on the wgmma
-   route, asserted; the x0 within the cell's x0_rel limit, 0.015 relative
-   L2, of the plain route's), the eps forward per NFE on both routes, the
-   kernel route's device time by kernel and peak memory.
+   route, each MoE kernel 40 x 10 = 400, asserted; the x0 within the
+   cell's x0_rel limit, 0.015 relative L2, of the plain route's), the eps
+   forward per NFE on both routes, the kernel route's device time by
+   kernel and peak memory.
 11. Whisper-tiny at its published widths (4 decoder and 4 encoder layers,
    d_model 384, 6 heads of 64, d_ff 1536, vocab 51865, bf16) over frames
    (4, 1500, 384) drawn from a seed, random weights from seed 0: the
@@ -310,7 +322,9 @@ WGMMA_KERNELS = {"flash_attention": "flash_fwd_wgmma_kernel", "ssd_scan": "ssd_s
 TF32_KERNELS = {"flash_attention": "flash_fwd_tf32x3_kernel", "ssd_scan": "ssd_scan_tf32x3_kernel"}
 # CUDA sources with no tensor-core work: their kernels (registers and spills
 # printed; ptxas spills a few bytes in some instances off the main paths)
-PLAIN_KERNELS = {"ssm_pointwise": ("ssm_conv_prep_kernel", "ssm_gated_norm_kernel")}
+PLAIN_KERNELS = {"ssm_pointwise": ("ssm_conv_prep_kernel", "ssm_gated_norm_kernel"),
+                 "moe_dispatch": ("moe_route_kernel", "moe_gather_kernel", "moe_glu_kernel",
+                                  "moe_combine_kernel")}
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")   # mma.sync, wgmma, TMA loads
 # each (kernel, route)'s CUDA function, as the profiler and cuobjdump name it
 KERNEL_NAMES = {("K2", "wgmma"): "flash_fwd_wgmma_kernel",
@@ -1026,6 +1040,111 @@ def phase_ssm_pointwise(device):
         row = _bounds(f"ssm {name}", dtype, nbytes[name], 0, t, (name,))
         out[name] = dict(row, max_abs_err=err[name], ms=t[name], plain_ms=t[f"{name}_plain"],
                          library_ms=None)
+    return out
+
+
+# the MoE kernels' shapes (B, S, E, k, C, d, f, dtype, rows alike): granite-4.0-h-small's
+# and mixtral-8x7b's one-shot shapes (C = int(1.25 S k / E)), every token choosing
+# the same experts at granite's, then small odd widths (4- and 2-byte accesses)
+MOE_CASES = [(16, 256, 72, 10, 44, 4096, 768, torch.bfloat16, False),
+             (4, 256, 8, 2, 80, 4096, 14336, torch.bfloat16, False),
+             (16, 256, 72, 10, 44, 4096, 768, torch.bfloat16, True),
+             (3, 70, 16, 4, 6, 33, 20, torch.float32, False),
+             (2, 40, 6, 2, 13, 33, 7, torch.bfloat16, False)]
+MOE_KEYS = ("moe_route", "moe_gather", "moe_glu", "moe_combine")
+
+
+def _moe_inputs(device, b, s, e, k, c, d, f, dtype, alike, seed=31):
+    """Router logits (B, S, E) float32 (every token's the same where
+    ``alike``), x (B, S, d), the up and gate products (E, B C, f), the
+    experts' outputs (E, B C, d) and a shared addend (B, S, d), from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *sh: torch.randn(sh, generator=gen, device=device)
+    logits = r(1, 1, e).expand(b, s, e).contiguous() if alike else r(b, s, e)
+    return (logits, r(b, s, d).to(dtype), (r(e, b * c, f) * 2).to(dtype),
+            (r(e, b * c, f) * 2).to(dtype), r(e, b * c, d).to(dtype), r(b, s, d).to(dtype))
+
+
+def phase_moe_dispatch(device):
+    """The MoE layer's four kernels (``kernels/moe_dispatch.py``) against
+    their plain versions over ``MOE_CASES``: ``moe_route``'s choices, places,
+    slots, table and kept counts bitwise, its gates, gate sums and
+    logsumexps within float32 rounding (rtol 1e-5); ``moe_gather`` bitwise;
+    ``moe_glu`` within one rounding of its dtype (the share bitwise
+    printed); ``moe_combine``, with and without the shared addend, within
+    one rounding of its plain version's float32 sum. Each launch counted.
+    Then in bf16 at granite-4.0-h-small's one-shot shape, in turns, each
+    kernel and its plain version beside its byte bound. Returns {kernel:
+    numbers}."""
+    from repro_torch.kernels import moe_dispatch as MD
+    cases = MOE_CASES if device.type == "cuda" else [c for c in MOE_CASES if c[5] < 64]
+    _reset_counts()
+    err = dict.fromkeys(("gate_vals", "gather", "glu", "combine"), 0.0)
+    same = []
+    for (b, s, e, k, c, d, f, dtype, alike) in cases:
+        logits, x, h, g, out_e, add = _moe_inputs(device, b, s, e, k, c, d, f, dtype, alike)
+        r, rw = MD.route(logits, top_k=k, cap=c), MD.route_ref(logits, top_k=k, cap=c)
+        for key in ("gate_idx", "pos", "slot", "table", "kept"):
+            if not torch.equal(r[key], rw[key]):
+                raise AssertionError(f"moe_route {(b, s, e, k, c)}: {key} differs from the "
+                                     "plain version's")
+        for key in ("gate_vals", "gate_sum", "lse"):
+            torch.testing.assert_close(r[key], rw[key], rtol=1e-5, atol=1e-6)
+        err["gate_vals"] = max(err["gate_vals"], _max_err(r["gate_vals"], rw["gate_vals"]))
+        if not torch.equal(MD.gather(x, r["table"]), MD.gather_ref(x, r["table"])):
+            raise AssertionError(f"moe_gather {(b, e, c, d, dtype)}: not bitwise")
+        one = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -21   # one unit in the last place
+        a, aw = MD.glu(h, g), MD.glu_ref(h, g)
+        torch.testing.assert_close(a.float(), aw.float(), rtol=one, atol=1e-30)
+        same.append((a == aw).float().mean().item())
+        err["glu"] = max(err["glu"], _max_err(a, aw))
+        for extra in (add, None):
+            o = MD.combine(out_e, r["slot"], r["gate_vals"], extra)
+            ow = MD.combine_ref(out_e, r["slot"], r["gate_vals"], extra)
+            torch.testing.assert_close(o.float(), ow.float(), rtol=one,
+                                       atol=1e-5 * out_e.abs().max().item())
+            err["combine"] = max(err["combine"], _max_err(o, ow))
+    counts = _counts()
+    want = dict(moe_route=len(cases), moe_gather=len(cases), moe_glu=len(cases),
+                moe_combine=2 * len(cases))
+    if device.type == "cuda" and {key: counts[key] for key in MOE_KEYS} != want:
+        raise AssertionError(f"moe kernels: launches {counts}, not {want}")
+    print(f"moe kernels check: {len(cases)} cases (granite's and mixtral's one-shot shapes, "
+          f"every token on the same experts, odd widths; float32 and bf16): route bitwise in "
+          f"its choices, places, slots and table; gather bitwise; glu bitwise in "
+          f"{min(same):.4f}-{max(same):.4f} of its outputs; max abs "
+          + ", ".join(f"{key} {v:.3e}" for key, v in err.items()) + f"; launches {counts}")
+
+    b, s, e, k, c, d, f, dtype, alike = cases[0]
+    logits, x, h, g, out_e, add = _moe_inputs(device, b, s, e, k, c, d, f, dtype, alike)
+    r = MD.route(logits, top_k=k, cap=c)
+    calls = {"moe_route": (lambda: MD.route(logits, top_k=k, cap=c), "moe_route_kernel"),
+             "moe_route_plain": (lambda: MD.route_ref(logits, top_k=k, cap=c), None),
+             "moe_gather": (lambda: MD.gather(x, r["table"]), "moe_gather_kernel"),
+             "moe_gather_plain": (lambda: MD.gather_ref(x, r["table"]), None),
+             "moe_glu": (lambda: MD.glu(h, g), "moe_glu_kernel"),
+             "moe_glu_plain": (lambda: MD.glu_ref(h, g), None),
+             "moe_combine": (lambda: MD.combine(out_e, r["slot"], r["gate_vals"], add),
+                             "moe_combine_kernel"),
+             "moe_combine_plain": (lambda: MD.combine_ref(out_e, r["slot"], r["gate_vals"],
+                                                          add), None)}
+    t = _turns(device, f"moe kernels at B={b} S={s} E={e} k={k} C={c} d={d} f={f} "
+               f"{str(dtype)[6:]}", calls)
+    es, slots, pairs = x.element_size(), e * b * c, b * s * k
+    kept = int(r["kept"].sum())
+    # each input read once and each output written once; the combine reads
+    # only the kept slots' rows, plus the shared addend
+    nbytes = {"moe_route": b * s * e * 4 + pairs * 20 + slots * 4 + b * e * 8 + b * s * 4,
+              "moe_gather": slots * d * es + b * s * d * es + slots * 4,
+              "moe_glu": 3 * slots * f * es,
+              "moe_combine": kept * d * es + pairs * 8 + 2 * b * s * d * es}
+    names = {"moe_route": "gate_vals", "moe_gather": "gather", "moe_glu": "glu",
+             "moe_combine": "combine"}
+    out = {}
+    for name in MOE_KEYS:
+        row = _bounds(name, dtype, nbytes[name], 0, t, (name,))
+        out[name] = dict(row, max_abs_err=err[names[name]], ms=t[name],
+                         plain_ms=t[f"{name}_plain"], library_ms=None)
     return out
 
 
@@ -2078,21 +2197,29 @@ def phase_batch_invariance(device, cfg, params, sde):
 
 
 def _reset_counts():
-    from repro_torch.kernels import deis_step, flash_attention, ssd_scan, ssm_pointwise
+    from repro_torch.kernels import (deis_step, flash_attention, moe_dispatch, ssd_scan,
+                                     ssm_pointwise)
     for fn in (deis_step.fused_ab_step, flash_attention.flash_attention,
-               ssd_scan.ssd_scan, ssm_pointwise.conv_prep, ssm_pointwise.gated_norm):
+               ssd_scan.ssd_scan, ssm_pointwise.conv_prep, ssm_pointwise.gated_norm,
+               moe_dispatch.route, moe_dispatch.gather, moe_dispatch.glu,
+               moe_dispatch.combine):
         fn.launches = 0
     for fn in (flash_attention.flash_attention, ssd_scan.ssd_scan):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def _counts():
-    from repro_torch.kernels import deis_step, flash_attention, ssd_scan, ssm_pointwise
+    from repro_torch.kernels import (deis_step, flash_attention, moe_dispatch, ssd_scan,
+                                     ssm_pointwise)
     return dict(K1=deis_step.fused_ab_step.launches,
                 K2=flash_attention.flash_attention.launches,
                 K3=ssd_scan.ssd_scan.launches,
                 ssm_pre=ssm_pointwise.conv_prep.launches,
-                ssm_post=ssm_pointwise.gated_norm.launches)
+                ssm_post=ssm_pointwise.gated_norm.launches,
+                moe_route=moe_dispatch.route.launches,
+                moe_gather=moe_dispatch.gather.launches,
+                moe_glu=moe_dispatch.glu.launches,
+                moe_combine=moe_dispatch.combine.launches)
 
 
 def _init_model(arch, device, reduced, n_layers=None):
@@ -2166,8 +2293,11 @@ def phase_one_shot(device, cfg, params, reduced, nfe=10, batch=4, cond=None, x0_
     kinds = [T._layer_kind(cfg, i)[0] for i in range(cfg.n_layers)]
     want = {"K1": plan.n_steps, "K2": kinds.count("attn") * nfe,
             "K3": kinds.count("ssm") * nfe}
-    # the SSM mixer's two pointwise passes, once an SSM layer and NFE
+    # the SSM mixer's two pointwise passes, once an SSM layer and NFE; each
+    # MoE kernel once a MoE layer and NFE
     want["ssm_pre"] = want["ssm_post"] = want["K3"]
+    n_moe = [T._layer_kind(cfg, i)[1] for i in range(cfg.n_layers)].count("moe")
+    want.update(dict.fromkeys(MOE_KEYS, n_moe * nfe))
     mixers = [k for k in ("K2", "K3") if want[k]]
     runs = {}
     with torch.no_grad():
@@ -2202,7 +2332,8 @@ def phase_one_shot(device, cfg, params, reduced, nfe=10, batch=4, cond=None, x0_
             raise AssertionError(f"{cfg.name}: {k} took the routes {routes[k]}, not wgmma "
                                  f"{want[k]} times")
     if device.type == "cuda" and runs[False][2] != dict(want, K2=0, K3=0, ssm_pre=0,
-                                                        ssm_post=0):
+                                                        ssm_post=0,
+                                                        **dict.fromkeys(MOE_KEYS, 0)):
         raise AssertionError(f"{cfg.name}: plain route launched {runs[False][2]}")
     (tk, xk, _, _), (tp, xp, _, _) = runs[True], runs[False]
     eq = (tk == tp).float().mean().item()
@@ -2320,7 +2451,8 @@ def _moe_parts_us(fn, n):
     combine products, or scatter and gathers) and "attention" (K2 apart)
     that launched it. Returns ({part: us}, busy us from the kernel table)."""
     from torch.profiler import ProfilerActivity, profile
-    with _layer_ranges({"attention": "attention", "moe": "moe", "_experts": "experts"}):
+    with _layer_ranges({"attention": "attention", "moe": "moe", "_experts": "experts",
+                        "_expert_glu": "experts"}):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2683,7 +2815,7 @@ def phase_paper(device, reduced):
     for name in names:
         print(f"  {name:10s}" + "".join(f"  {errs[name, n]:8.4f}" for n in nfes))
     if device.type == "cuda" and counts != {"K1": want_k1, "K2": 0, "K3": 0, "ssm_pre": 0,
-                                            "ssm_post": 0}:
+                                            "ssm_post": 0, **dict.fromkeys(MOE_KEYS, 0)}:
         raise AssertionError(f"paper: the table launched {counts}, not K1 {want_k1}")
     if not errs["tab3", 10] < errs["ddim", 10]:
         raise AssertionError(f"paper: tAB3@10 {errs['tab3', 10]:.4f} did not beat DDIM@10 "
@@ -3206,6 +3338,8 @@ def phase_card_vs_cpu(device):
         want = {"K1": 6, "K2": 6 * kinds.count("attn") * use_kernels,
                 "K3": 6 * kinds.count("ssm") * use_kernels}
         want["ssm_pre"] = want["ssm_post"] = want["K3"]
+        n_moe = [_layer_kind(cfg, i)[1] for i in range(cfg.n_layers)].count("moe")
+        want.update(dict.fromkeys(MOE_KEYS, 6 * n_moe * use_kernels))
         mixers = [m for m in ("K2", "K3") if want[m]]
         if not torch.isfinite(x_dev).all() or counts != want:
             raise AssertionError(f"{arch}: card route not finite or launched {counts}, "
@@ -3328,6 +3462,7 @@ def main(argv=None) -> int:
     k2 = phase_k2(device)
     k3 = phase_k3(device)
     pw = phase_ssm_pointwise(device)
+    md = phase_moe_dispatch(device)
     phase_scaling(device)
     phase_stress(device)
     lap("kernels")
@@ -3466,6 +3601,10 @@ def main(argv=None) -> int:
               pw["post"]),
              ("ssm_post_gate_first", "cuda", "csrc/ssm_pointwise.cu", None,
               granite["counts"]["ssm_post"], pw["post_gate_first"])]
+    # the MoE's kernels replace no TPU kernel: their launches on mixtral's and
+    # granite's bf16 one-shot paths; times at granite's shape
+    rows += [(name, "cuda", "csrc/moe_dispatch.cu", None,
+              mixtral["counts"][name] + granite["counts"][name], md[name]) for name in MOE_KEYS]
     print(json.dumps({"kernels": [{
         "name": name, "route": route, "source": f"src/repro_torch/kernels/{src}",
         "replaces": site and f"src/repro/kernels/{site}", "launches": n,

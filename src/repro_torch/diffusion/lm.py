@@ -161,8 +161,9 @@ def sample_tokens(params, cfg: ModelConfig, plan: SolverPlan, gens, *,
 
     The counterpart of ``repro.diffusion.lm.sample_tokens``; the reference's
     ``use_pallas`` is ``use_kernels`` here (the port launches no Pallas):
-    attention runs through kernel K2, the Mamba2 scan through K3, and a
-    ``fused`` ``ab`` plan through K1. ``gens`` is a ``(prior, solve)`` pair
+    attention runs through kernel K2, the Mamba2 scan through K3, a MoE on
+    the card through its dispatch kernels, and a ``fused`` ``ab`` plan
+    through K1. ``gens`` is a ``(prior, solve)`` pair
     of ``torch.Generator``s on that device (the counterpart of splitting the
     reference's key): the prior ``N(0, prior_std^2)`` of shape
     ``(batch, seq_len, d_model)`` is drawn from the first, a stochastic

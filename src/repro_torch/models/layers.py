@@ -3,7 +3,8 @@ window, per-row key masking, logit softcap, no position embedding and a
 softmax scale of the config's, the KV cache and its sliding-window ring,
 cross-attention; kernel K2 on request), GLU MLPs, the top-k capacity MoE
 (GShard one-hot or slot-table dispatch, with its aux losses; a shared
-expert beside the routed ones) and the diffusion time embedding.
+expert beside the routed ones; hand-written kernels around the experts'
+products on request) and the diffusion time embedding.
 
 The counterpart of ``repro.models.layers``.
 Plain functions over parameter dicts with the reference's layouts: weights
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels import moe_dispatch as MD
 from ..kernels import ops
 from ..obs.trace import NULL_TRACER
 from ..sharding import tensor_parallel as TP
@@ -349,6 +351,12 @@ def moe_route(params, cfg: ModelConfig, x) -> dict:
     return moe_queue(cfg, logits, gates, gate_idx)
 
 
+def _capacity(cfg: ModelConfig, s: int, k: int, e: int) -> int:
+    """Each expert's slots per row: ``max(1, int(capacity_factor * S * k /
+    E))`` capped at S."""
+    return min(max(1, int(cfg.moe.capacity_factor * s * k / e)), s)
+
+
 def moe_queue(cfg: ModelConfig, logits, gates, gate_idx) -> dict:
     """Queue places and drops of the chosen experts ``gate_idx`` (B, S, k).
     Returns a dict of
@@ -364,7 +372,7 @@ def moe_queue(cfg: ModelConfig, logits, gates, gate_idx) -> dict:
     ``within_cap``: (B, S, k) ``pos < cap``; the other pairs are dropped."""
     b, s, e = gates.shape
     k = gate_idx.shape[-1]
-    cap = min(max(1, int(cfg.moe.capacity_factor * s * k / e)), s)
+    cap = _capacity(cfg, s, k, e)
     gate_vals = gates.gather(-1, gate_idx)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
     choice = F.one_hot(gate_idx, e)                               # (B,S,k,E)
@@ -375,16 +383,22 @@ def moe_queue(cfg: ModelConfig, logits, gates, gate_idx) -> dict:
                 gate_idx=gate_idx, pos=pos, within_cap=pos < cap)
 
 
-def _experts(params, xin):
-    """The experts' GLU on their slots: xin (B, E, C, d) -> (B, E * C, d),
-    one product per expert over all rows' slots, ``silu(g) * h`` in float32
-    (the reference's ``moe`` applies silu whatever ``cfg.act`` says)."""
-    b, e, c, d = xin.shape
-    xin = xin.transpose(0, 1).reshape(e, b * c, d)
+def _expert_glu(params, xin, glu):
+    """The experts' GLU on their slots laid out (E, N, d): one product per
+    expert for up and gate, ``glu(h, g)`` (``silu(g) * h`` in float32: the
+    reference's ``moe`` applies silu whatever ``cfg.act`` says), then the
+    down product. Returns (E, N, d)."""
     h, split = TP.linear(xin, params["w_up"], op=torch.bmm)
     g, _ = TP.linear(xin, params["w_gate"], op=torch.bmm)      # split as w_up
-    h = (F.silu(g.to(torch.float32)) * h.to(torch.float32)).to(xin.dtype)
-    out, _ = TP.linear(h, params["w_down"], x_split=split, op=torch.bmm)
+    out, _ = TP.linear(glu(h, g), params["w_down"], x_split=split, op=torch.bmm)
+    return out
+
+
+def _experts(params, xin):
+    """The experts on their slots: xin (B, E, C, d) -> (B, E * C, d), over
+    all rows' slots at once (:func:`_expert_glu` on (E, B * C, d))."""
+    b, e, c, d = xin.shape
+    out = _expert_glu(params, xin.transpose(0, 1).reshape(e, b * c, d), MD.glu_ref)
     return out.reshape(e, b, c, d).transpose(0, 1).reshape(b, e * c, d)
 
 
@@ -443,40 +457,95 @@ def _dispatch_gather(params, x, r, tracer=NULL_TRACER):
     return out, frac.to(torch.float32).mean((0, 1))
 
 
-def moe(params, cfg: ModelConfig, x, tracer=NULL_TRACER):
+def _count(tracer, b: int, s: int, k: int, e: int, cap: int) -> None:
+    """Into a tracer's registry (not ``NULL_TRACER``'s): the slots the
+    experts compute (B E C) and the (token, choice) pairs routed (B S k)."""
+    if tracer is not NULL_TRACER:
+        tracer.registry.counter("moe_expert_slots_total", "expert slots computed (B E C)").inc(
+            b * e * cap)
+        tracer.registry.counter("moe_routed_pairs_total", "(token, choice) pairs routed "
+                                "(B S k)").inc(b * s * k)
+
+
+def _moe_kernels(params, cfg: ModelConfig, x, tracer=NULL_TRACER):
+    """The kernel route of :func:`moe` (:mod:`~repro_torch.kernels.moe_dispatch`;
+    on CPU tensors its plain versions): the router's product, then
+    ``route`` (top-k, gates, queue places, the (E, B C) slot table),
+    ``gather`` (the experts' rows straight into (E, B C, d)), the up and
+    gate products, ``glu``, the down product, the shared expert, and
+    ``combine`` (each token's k outputs by slot, weighted by its gates,
+    plus the shared expert's output, one rounding). Spans ``route``,
+    ``dispatch``, ``experts``, ``shared``, ``combine``. No backward: raises
+    where autograd would record it."""
+    mcfg = cfg.moe
+    leaves = [x] + [v for v in params.values() if isinstance(v, torch.Tensor)] \
+        + list(params.get("shared", {}).values())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        raise RuntimeError("the MoE's kernel route has no backward: run it under "
+                           "torch.no_grad(), or with use_kernels=False")
+    b, s, _ = x.shape
+    e, k = mcfg.num_experts, mcfg.top_k
+    cap = _capacity(cfg, s, k, e)
+    with tracer.span("route"):
+        r = MD.route(x.to(torch.float32) @ params["router"], top_k=k, cap=cap)
+    _count(tracer, b, s, k, e, cap)
+    with tracer.span("dispatch"):
+        xin = MD.gather(x, r["table"])
+    with tracer.span("experts"):
+        out_e = _expert_glu(params, xin, MD.glu)
+    shared = None
+    if mcfg.shared_ff:
+        with tracer.span("shared"):
+            shared = mlp(params["shared"], cfg, x)
+    with tracer.span("combine"):
+        out = MD.combine(out_e, r["slot"], r["gate_vals"], shared)
+    me = r["gate_sum"].sum(0) / (b * s)
+    frac_dispatched = r["kept"].sum(0).to(torch.float32) / (b * s)
+    lb_loss = e * (me * frac_dispatched).sum() * mcfg.load_balance_loss
+    z_loss = (r["lse"] ** 2).mean() * mcfg.router_z_loss
+    return out, {"moe_lb": lb_loss, "moe_z": z_loss}
+
+
+def moe(params, cfg: ModelConfig, x, tracer=NULL_TRACER, use_kernels: bool = False):
     """Top-k capacity-based MoE (GShard/Switch) over x (B, S, d). Two
-    dispatch modes, as the reference's (``cfg.moe_dispatch``): "einsum"
-    (one-hot dispatch and combine products) and "gather" (a slot table,
-    gathers in and out). Both drop the same (token, choice) pairs and agree
-    to rounding. With ``cfg.moe.shared_ff`` a shared expert (:func:`mlp`
-    over ``params["shared"]``) sees every token and its output is added
-    to the routed experts'. Returns ``(out, {"moe_lb", "moe_z"})``: the
-    load-balance loss ``E * sum(mean gate * share dispatched)`` and the
-    router z-loss ``mean(logsumexp(logits)^2)``, each times its
-    coefficient (the shared expert takes no part in them).
+    dispatch modes on the plain route, as the reference's
+    (``cfg.moe_dispatch``): "einsum" (one-hot dispatch and combine products)
+    and "gather" (a slot table, gathers in and out). Both drop the same
+    (token, choice) pairs and agree to rounding. With ``cfg.moe.shared_ff``
+    a shared expert (:func:`mlp` over ``params["shared"]``) sees every token
+    and its output is added to the routed experts'. Returns ``(out,
+    {"moe_lb", "moe_z"})``: the load-balance loss ``E * sum(mean gate *
+    share dispatched)`` and the router z-loss ``mean(logsumexp(logits)^2)``,
+    each times its coefficient (the shared expert takes no part in them).
+
+    ``use_kernels`` with x on a CUDA device: the kernel route
+    (:func:`_moe_kernels`, four hand-written kernels around the experts'
+    products), whatever ``cfg.moe_dispatch`` says: both modes compute the
+    same pairs, so the route has one algorithm. It has no backward (it
+    raises where autograd would record it). On a CPU tensor, and without
+    ``use_kernels``, the plain route of ``cfg.moe_dispatch``.
 
     ``tracer``: spans ``route``, then ``dispatch``, ``experts`` and
     ``combine`` (:func:`_dispatch_einsum`, :func:`_dispatch_gather`), then
-    ``shared``; a tracer other than ``NULL_TRACER`` also counts into its
-    registry ``moe_expert_slots_total`` (B E C, the slots the experts
-    compute) and ``moe_routed_pairs_total`` (B S k, the (token, choice)
-    pairs routed), both known on the host.
+    ``shared`` (on the kernel route before ``combine``, which adds it); a
+    tracer other than ``NULL_TRACER`` also counts into its registry
+    ``moe_expert_slots_total`` (B E C, the slots the experts compute) and
+    ``moe_routed_pairs_total`` (B S k, the (token, choice) pairs routed),
+    both known on the host.
 
     On a mesh the rows are this rank's block of the batch, so the batch dim
     is split over the batch axes (``cfg.act_shard_axes`` pins it there: the
     sharded loss refuses a batch that is not split over them), the experts
     are split over 'model' on d_ff, and both losses take their batch means
     over the whole batch (``batch_mean``)."""
+    if use_kernels and x.is_cuda:
+        return _moe_kernels(params, cfg, x, tracer)
     mcfg = cfg.moe
     ax = TP.axes_of(params["router"])
     with tracer.span("route"):
         r = moe_route(params, cfg, x)
-    if tracer is not NULL_TRACER:
-        b, s, k = r["gate_idx"].shape
-        tracer.registry.counter("moe_expert_slots_total", "expert slots computed (B E C)").inc(
-            b * mcfg.num_experts * r["cap"])
-        tracer.registry.counter("moe_routed_pairs_total", "(token, choice) pairs routed "
-                                "(B S k)").inc(b * s * k)
+    b, s, k = r["gate_idx"].shape
+    _count(tracer, b, s, k, mcfg.num_experts, r["cap"])
     if cfg.moe_dispatch == "gather":
         out, frac_dispatched = _dispatch_gather(params, x, r, tracer)
     elif cfg.moe_dispatch == "einsum":

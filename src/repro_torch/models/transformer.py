@@ -15,7 +15,9 @@ reference's slot ``i % block_size`` of block ``i // block_size``, see
 :func:`repro_torch.models.convert.params_from_numpy`) and a Python loop
 walks it, each layer's kind given by its index (:func:`_layer_kind`).
 ``use_kernels`` sends the decoder's self-attention to kernel K2 and the
-Mamba2 scan to kernel K3 (the reference's ``use_pallas``). The encoder and
+Mamba2 scan to kernel K3 (the reference's ``use_pallas``), and a MoE on the
+card to its dispatch kernels (no backward; the reference leaves its MoE to
+XLA). The encoder and
 cross-attention take the plain route, as in the reference (its
 ``_run_encoder`` passes no ``use_pallas``, and its Pallas route excludes
 ``kv_override``).
@@ -307,7 +309,7 @@ def _apply_layer(cfg: ModelConfig, i: int, bp: dict, h, positions, aux: dict, *,
                 h = _residual(cfg, h, L.mlp(bp["mlp"], cfg, hn))
         else:
             with tracer.span("layer.moe"):
-                out, moe_aux = L.moe(bp["moe"], cfg, hn, tracer)
+                out, moe_aux = L.moe(bp["moe"], cfg, hn, tracer, use_kernels)
                 h = _residual(cfg, h, out)
             _add_aux(aux, moe_aux)
     return h, nc
@@ -384,8 +386,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None, prefix=None,
     vlm prefix, against ``cache``; attention caches are written in place).
     valid_len: optional (B,) per-row true length for bucket-padded batches
     (padded tail keys are masked out); use_kernels: self-attention through
-    K2 (which refuses ``valid_len`` and a cache) and the Mamba2 scan
-    through K3. remat: train mode only; each decoder layer runs under
+    K2 (which refuses ``valid_len`` and a cache), the Mamba2 scan
+    through K3, a MoE on the card through its dispatch kernels. remat: train mode only; each decoder layer runs under
     ``torch.utils.checkpoint`` (its activations are recomputed in the
     backward pass; the reference's ``jax.checkpoint`` of a scan block).
     tracer: each decoder layer's spans (:func:`_apply_layer`; none under

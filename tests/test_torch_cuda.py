@@ -35,6 +35,14 @@ granite-4.0-h-small's width too. A one-shot sample of the reduced mamba2
 launches each pass and K3 once a layer and NFE; the reduced granite's
 forward on the kernel route is held to its plain route (1e-3).
 
+The MoE layer's four kernels (CUDA C++, ``kernels/moe_dispatch.py``) at
+granite-4.0-h-small's and mixtral-8x7b's one-shot shapes and odd widths:
+``moe_route``'s choices, places, slots and table bitwise against its plain
+version (every token on the same experts too), its gates within float32
+rounding; ``moe_gather`` bitwise; ``moe_glu`` and ``moe_combine`` within one
+rounding; a tiny granite forward on the kernel route under the sync debug
+mode's "error".
+
 The training slice's card tests: a float32 train step against the CPU
 (loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
 update of the same grads rtol 1e-5, atol 1e-7), AdamW on CUDA tensors
@@ -576,6 +584,129 @@ def test_cuda_one_shot_mamba2_launches_each_pass_once_a_layer(cuda):
         torch.cuda.synchronize()
         after = (SP.conv_prep.launches, SP.gated_norm.launches, SS.ssd_scan.launches)
         assert tuple(x - y for x, y in zip(after, before)) == (n, n, n)
+
+
+# the MoE kernels' shapes (B, S, E, k, C, d, f): granite-4.0-h-small's one-shot
+# shape and mixtral-8x7b's one layer, then small odd widths (4- and 2-byte accesses)
+MOE_CASES = [(16, 256, 72, 10, 44, 4096, 768), (4, 256, 8, 2, 80, 4096, 14336),
+             (3, 70, 16, 4, 6, 33, 20), (2, 40, 6, 2, 13, 35, 7)]
+MOE_ROUTE_CASES = [(16, 256, 72, 10, 44, False), (4, 256, 8, 2, 80, False),
+                   (16, 256, 72, 10, 44, True), (3, 300, 130, 3, 5, False)]
+
+
+def _moe_logits(cuda, b, s, e, alike, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if alike:       # every token's logits the same: every token picks the same experts
+        return torch.randn((1, 1, e), generator=g, device=cuda).expand(b, s, e).contiguous()
+    return torch.randn((b, s, e), generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("b,s,e,k,c,alike", MOE_ROUTE_CASES)
+def test_cuda_moe_route_matches_plain(cuda, b, s, e, k, c, alike):
+    """``moe_route`` against its plain version on the card, at granite's and
+    mixtral's shapes, with every token choosing the same experts (all but C
+    of each row's pairs to an expert drop), and at E 130 (more experts
+    than threads) over S 300 (a part tile): each token's chosen logits
+    equal (ties may swap only between equal logits), then the choices,
+    places, slots, table and kept counts bitwise; the gates, gate sums and
+    logsumexps within float32 rounding (rtol 1e-5)."""
+    from repro_torch.kernels import moe_dispatch as MD
+    logits = _moe_logits(cuda, b, s, e, alike)
+    before = MD.route.launches
+    got = MD.route(logits, top_k=k, cap=c)
+    torch.cuda.synchronize()
+    assert MD.route.launches == before + 1
+    want = MD.route_ref(logits, top_k=k, cap=c)
+    torch.testing.assert_close(logits.gather(-1, got["gate_idx"]),
+                               logits.gather(-1, want["gate_idx"]), rtol=0, atol=0)
+    for key in ("gate_idx", "pos", "slot", "table", "kept"):
+        assert torch.equal(got[key], want[key]), key
+    for key in ("gate_vals", "gate_sum", "lse"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-6)
+    if alike:       # each chosen expert takes the row's first C tokens
+        assert int((got["slot"] >= 0).sum()) == b * k * c
+        assert bool((got["pos"] == torch.arange(s, device=cuda)[None, :, None]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,e,k,c,d,f", MOE_CASES)
+def test_cuda_moe_gather_glu_combine_match_plain(cuda, b, s, e, k, c, d, f, dtype):
+    """``moe_gather`` bitwise; ``moe_glu`` within one unit in the last place
+    of its plain version (the same formula: bitwise but for a rounding
+    flipped by the exponential); ``moe_combine`` with and without the shared
+    addend within one rounding of its plain version's float32 sum (rtol one
+    unit in the last place, atol 1e-5 of the largest expert output). Each
+    launches once."""
+    from repro_torch.kernels import moe_dispatch as MD
+    g = torch.Generator(device=cuda).manual_seed(b + e + d)
+    r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    route = MD.route(_moe_logits(cuda, b, s, e, False), top_k=k, cap=c)
+    x, add = r(b, s, d).to(dtype), r(b, s, d).to(dtype)
+    h, gate, out_e = (r(e, b * c, f) * 2).to(dtype), (r(e, b * c, f) * 2).to(dtype), \
+        r(e, b * c, d).to(dtype)
+    before = (MD.gather.launches, MD.glu.launches, MD.combine.launches)
+    xin = MD.gather(x, route["table"])
+    a = MD.glu(h, gate)
+    outs = [MD.combine(out_e, route["slot"], route["gate_vals"], extra) for extra in (add, None)]
+    torch.cuda.synchronize()
+    assert (MD.gather.launches, MD.glu.launches, MD.combine.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert torch.equal(xin, MD.gather_ref(x, route["table"]))
+    one = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -21
+    torch.testing.assert_close(a.float(), MD.glu_ref(h, gate).float(), rtol=one, atol=1e-30)
+    for out, extra in zip(outs, (add, None)):
+        want = MD.combine_ref(out_e, route["slot"], route["gate_vals"], extra)
+        torch.testing.assert_close(out.float(), want.float(), rtol=one,
+                                   atol=1e-5 * out_e.abs().max().item())
+
+
+def test_cuda_moe_takes_unaligned_views(cuda):
+    """Operands one element past a 16-byte line (2- and 4-byte accesses):
+    the gather bitwise, the combine within one rounding."""
+    from repro_torch.kernels import moe_dispatch as MD
+    b, s, e, k, c, d = 2, 40, 6, 2, 13, 64
+    route = MD.route(_moe_logits(cuda, b, s, e, False), top_k=k, cap=c)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _unaligned(torch.randn((b, s, d), generator=g, device=cuda).to(torch.bfloat16))
+    out_e = _unaligned(torch.randn((e, b * c, d), generator=g, device=cuda))
+    assert torch.equal(MD.gather(x, route["table"]), MD.gather_ref(x, route["table"]))
+    torch.testing.assert_close(MD.combine(out_e, route["slot"], route["gate_vals"]),
+                               MD.combine_ref(out_e, route["slot"], route["gate_vals"]),
+                               rtol=2.0 ** -21, atol=1e-5 * out_e.abs().max().item())
+
+
+def test_cuda_tiny_granite_moe_kernel_route_never_synchronises(cuda):
+    """The reduced float32 granite-4.0-h-small forward on the kernel route
+    under ``torch.cuda.set_sync_debug_mode("error")``: no step of it waits
+    on the card. Each MoE kernel launches once a layer (every layer is a
+    MoE); the plain route launches none; the kernel route raises under
+    autograd."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.models.transformer import forward, init_params
+    cfg = get_config("granite_4p0_h_small").reduced().with_(objective="diffusion")
+    params = init_params(cfg, 0, cuda)
+    g = torch.Generator(device=cuda).manual_seed(19)
+    x = torch.randn((2, 64, cfg.d_model), generator=g, device=cuda)
+    t = torch.tensor([0.8, 0.3], device=cuda)
+    kernels = (MD.route, MD.gather, MD.glu, MD.combine)
+    with torch.no_grad():
+        forward(params, cfg, embeds=x, t_cond=t, logits=False, use_kernels=True)  # builds
+        torch.cuda.synchronize()
+        for use_kernels, n in ((True, cfg.n_layers), (False, 0)):
+            before = [fn.launches for fn in kernels]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                forward(params, cfg, embeds=x, t_cond=t, logits=False, use_kernels=use_kernels)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            assert [fn.launches - b for fn, b in zip(kernels, before)] == [n] * 4
+    from repro_torch.models import layers as L
+    moe_p = {key: v.requires_grad_() if key == "router" else v
+             for key, v in params["blocks"][0]["moe"].items()}
+    with pytest.raises(RuntimeError, match="no backward"):
+        L.moe(moe_p, cfg, x, use_kernels=True)
 
 
 def _leaves(tree):
