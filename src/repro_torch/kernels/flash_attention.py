@@ -47,7 +47,7 @@ import math
 import torch
 
 from . import build, ref
-from .runtime import route_takes, use_kernel
+from .runtime import use_kernel
 
 HEAD_DIMS = (32, 64, 128, 256)       # the kernels' instantiations
 WGMMA_HEAD_DIMS = (64, 128, 256)     # flash_fwd_wgmma_kernel's
@@ -100,19 +100,12 @@ def route(q, k, v) -> str:
     return "mma_sync"
 
 
-def _launch(fn, q, k, v, causal: bool, window: int, stream, route_name=None,
-            scale=None) -> torch.Tensor:
+def _launch(fn, q, k, v, causal: bool, window: int, stream, scale=None) -> torch.Tensor:
     """Check the operands, allocate the output and launch ``fn`` on
-    ``stream`` on the operands' route (``route_name`` picks another route
-    that takes them, :func:`~.runtime.route_takes`: ``mma_sync`` for any
-    bf16, ``cuda_cores`` for any float32, to time them beside ``wgmma`` and
-    ``tf32x3``), the logits times ``scale`` (None: ``1/sqrt(D)``); raise on
-    a nonzero CUDA error."""
+    ``stream`` on the operands' :func:`route`, the logits times ``scale``
+    (None: ``1/sqrt(D)``); raise on a nonzero CUDA error."""
     _check(q, k, v, window)
-    own = route(q, k, v)
-    name = route_name or own
-    if not route_takes(name, q.dtype, own):
-        raise ValueError(f"route {name!r} does not take these operands (theirs: {own!r})")
+    name = route(q, k, v)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

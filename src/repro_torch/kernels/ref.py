@@ -15,9 +15,9 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 # The tolerances at which the card's K2 and K3 are held to these versions
-# (chip_smoke.py, tools/kernel_stress.py): K2's are the JAX kernel tests'
-# _tol, K3's the JAX ssd_scan test's; K3 in float32 at full width takes
-# atol K3_F32_SCALE * max|want|.
+# (chip_smoke.py, tools/kernel_stress.py; the card tests use the same
+# figures): K2's are the JAX kernel tests' _tol, K3's the JAX ssd_scan
+# test's; K3 in float32 at full width takes atol K3_F32_SCALE * max|want|.
 K2_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 K3_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 K3_F32_SCALE = 1e-5

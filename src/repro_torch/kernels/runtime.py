@@ -29,10 +29,14 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {dev}")
 
 
-def route_takes(name: str, dtype: torch.dtype, own: str) -> bool:
-    """Whether K2's or K3's route ``name`` takes operands of ``dtype`` whose
-    own route is ``own``: ``cuda_cores`` any float32 and ``mma_sync`` any
-    bf16; ``tf32x3`` and ``wgmma`` only the operands that route to them."""
-    f32 = dtype == torch.float32
-    return {"cuda_cores": f32, "mma_sync": not f32, "tf32x3": own == "tf32x3",
-            "wgmma": own == "wgmma"}.get(name, False)
+
+def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` on its device whose data starts one element
+    (2 bytes in bf16, 4 in float32) past a 16-byte line. Neither TMA nor a
+    16-byte cp.async can copy it, so K2 and K3 take it on their mma_sync
+    (bf16) or cuda_cores (float32) route: the operands that reach those
+    routes."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    if out.data_ptr() % 16 == 0:
+        raise RuntimeError("the allocator returned memory off a 16-byte line")
+    return out.copy_(t)

@@ -48,7 +48,7 @@ import ctypes
 import torch
 
 from . import build, ref
-from .runtime import route_takes, use_kernel
+from .runtime import use_kernel
 
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 256
 TILE = 64                      # steps per query tile of the wgmma kernel
@@ -109,18 +109,12 @@ def _scratch_floats(bb, s, h, p, n, chunk) -> int:
     return 0 if s <= L else bb * h * -(-L // TILE) * p * n
 
 
-def _launch(fn, x, a, B, C, chunk: int, stream, route_name=None):
+def _launch(fn, x, a, B, C, chunk: int, stream):
     """Check the operands, allocate y, the state (and the wgmma kernel's
-    scratch) and launch ``fn`` on ``stream`` on the operands' route
-    (``route_name`` picks another route that takes them,
-    :func:`~.runtime.route_takes`: ``mma_sync`` for any bf16, ``cuda_cores``
-    for any float32, to time them beside ``wgmma`` and ``tf32x3``); raise on
-    a nonzero CUDA error."""
+    scratch) and launch ``fn`` on ``stream`` on the operands'
+    :func:`route`; raise on a nonzero CUDA error."""
     _check(x, a, B, C, chunk)
-    own = route(x, B, C)
-    name = route_name or own
-    if not route_takes(name, x.dtype, own):
-        raise ValueError(f"route {name!r} does not take these operands (theirs: {own!r})")
+    name = route(x, B, C)
     bb, s, h, p = x.shape
     n = B.shape[2]
     y = torch.empty_like(x)

@@ -1,39 +1,44 @@
 """Tests of the port that need the CUDA card: each hand-written kernel
-against its plain version on the card (K1 in Triton; K2 and K3 in CUDA C++,
-built with nvcc at first use), and a stacked fused solve through K1. They
-import only torch and the port, so they run where JAX is absent:
+against its plain version on the card (K1 in Triton; K2, K3, the SSM
+mixer's passes and the MoE's kernels in CUDA C++, built with nvcc at first
+use), and the models, the engine and the training step on the card against
+the CPU. They import only torch and the port, so they run where JAX is
+absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card they skip. Tolerances: K1 float32 rtol = atol = 1e-6 (FMA
-contraction and summation order), stacked rows held bitwise, and bitwise
+contraction and summation order), with the noise and the error pair on and
+off, at ragged sizes, the served group's and the one-shot path's shapes
+and the score net's x (1, 1024, 2); stacked rows held bitwise, and bitwise
 to the plain version at the served shape (K1 is built without FMA
 contraction); K2 and K3 at the JAX kernel tests' own tolerances (K2 2e-5
 float32 and 2e-2 bf16, K3 2e-4 float32 and 5e-2 bf16: other summation
 orders, a bf16 rounding of the output that a last-bit difference can flip;
-K3 float32 at mamba2's full width and over four chunks at its widths adds
-an absolute term of 1e-5 x max|want|, sums of 256 x 128 terms on outputs
-of order hundreds); K2 also with a softmax scale given (granite's 1/128 at
-its GQA 32/8 shape). Each case checks that its route's launch count, and
-only that, went up: bf16 operands that TMA can describe run
-K2's and K3's wgmma kernels, other bf16 (D 32, odd widths, unaligned views)
-their mma.sync kernels; float32 with 16-byte aligned bases (K3: P and N
-multiples of 8) their 3xTF32 tensor-core kernels, other float32 (unaligned
-views, odd widths) their CUDA-core kernels. The mma.sync and CUDA-core
-kernels are also held over the same shapes by asking for their route.
+K3 float32 at mamba2's full width and over several chunks at its widths
+adds an absolute term of 1e-5 x max|want|, sums of 256 x 128 terms on
+outputs of order hundreds); K2 also with a softmax scale given (granite's
+1/128 at its GQA 32/8 shape). Each case checks that the route its operands
+select, and only that, counted one launch: bf16 operands that TMA can
+describe run K2's and K3's wgmma kernels, other bf16 (D 32, odd widths,
+unaligned views) their mma.sync kernels; float32 with 16-byte aligned
+bases (K3: P and N multiples of 8) their 3xTF32 tensor-core kernels, other
+float32 (unaligned views, odd widths) their CUDA-core kernels. Every shape
+is held on aligned operands and again on views one element past a 16-byte
+line, so the mma.sync and CUDA-core kernels see every shape the others do.
 
 The SSM mixer's two pointwise passes (CUDA C++, ``kernels/ssm_pointwise.py``)
-on views of an in-projection output at mamba2's one-shot shape, jamba's
-mixer widths, the reduced config, S < K - 1, S no multiple of the time
-tile, K 1 and 3, and unaligned views, in bf16 and float32: ``pre``'s xh,
-B and C within one rounding of the dtype of the same sums in float64
-(bf16 rtol 2^-7, atol 1e-5; float32 1e-5) and within the plain chain's
-own rounding error (it rounds each of K products and K sums), its decay a
-at rtol 1e-5; ``post`` within one rounding of its plain version (the
-mean's summation order, rsqrtf), in both orders of gate and norm at
-granite-4.0-h-small's width too. A one-shot sample of the reduced mamba2
-launches each pass and K3 once a layer and NFE; the reduced granite's
-forward on the kernel route is held to its plain route (1e-3).
+on views of an in-projection output at mamba2's and granite's one-shot
+shapes, jamba's mixer widths, the reduced config, S < K - 1, S no multiple
+of the time tile, K 1 and 3, and unaligned views, in bf16 and float32:
+``pre``'s xh, B and C within one rounding of the dtype of the same sums in
+float64 (bf16 rtol 2^-7, atol 1e-5; float32 1e-5) and within the plain
+chain's own rounding error (it rounds each of K products and K sums), its
+decay a at rtol 1e-5; ``post`` within one rounding of its plain version
+(the mean's summation order, rsqrtf), in both orders of gate and norm. A
+one-shot sample of the reduced mamba2 launches each pass and K3 once a
+layer and NFE; the reduced granite's forward on the kernel route is held
+to its plain route (1e-3).
 
 The MoE layer's four kernels (CUDA C++, ``kernels/moe_dispatch.py``) at
 granite-4.0-h-small's and mixtral-8x7b's one-shot shapes and odd widths:
@@ -43,12 +48,22 @@ rounding; ``moe_gather`` bitwise; ``moe_glu`` and ``moe_combine`` within one
 rounding; a tiny granite forward on the kernel route under the sync debug
 mode's "error".
 
-The training slice's card tests: a float32 train step against the CPU
-(loss rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW
-update of the same grads rtol 1e-5, atol 1e-7), AdamW on CUDA tensors
-against the CPU (rtol 1e-6, atol 1e-7), and the MLP score net trained on
+The card against the CPU, float32 at the reduced widths (1e-3: cuBLAS and
+the 3xTF32 kernels against the CPU's summation order): the one-shot path
+of every arch type (the MoE in both dispatch modes, whisper with frames,
+paligemma with a prefix, grok on the plain route, cifar10-scorenet at its
+published widths), each kernel's launches and every K2 and K3 launch on
+tf32x3; the served path's stacked solve; AR decode of the dense, ssm,
+windowed (a ring), hybrid, encdec (a cross cache) and vlm (a prefix)
+archs; one train step of each arch type and of the ar objective (loss
+rtol 1e-5, grads within 1e-3 of each leaf's max |grad|, the AdamW update
+of the same grads rtol 1e-5, atol 1e-7; no kernel launches in training);
+AdamW on CUDA tensors (rtol 1e-6, atol 1e-7); CLD's matrix tAB-DEIS and
+its RK4 reference in float64 (rtol 1e-10). The MLP score net trained on
 the card and sampled by a fused tab3 plan through K1 at x (1, 1024, 2)
-(within 1e-5 of the unfused solve).
+(within 1e-5 of the unfused solve). The serving engine on the card: every
+request of two staggered waves completes, K1 launches once an ``ab`` group
+step, a warm replay adds no executor.
 
 The request-axis slice's card tests: the sharded engine on a one-rank NCCL
 group bitwise equal to the unsharded engine on the card, and expert-parallel
@@ -60,6 +75,7 @@ wgmma kernels' rings: 300 launches each of the diagnostic build with every
 other ring item's copies held back, clean and every output unchanged; and
 as its positive control, the rings as first written under the same delay,
 which must fail."""
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -73,6 +89,7 @@ from repro_torch.kernels import deis_step as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as SS  # noqa: E402
+from repro_torch.kernels.runtime import unaligned_copy as _unaligned  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -86,24 +103,40 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("R,m,d", [(1, 70, 33), (3, 70, 33), (8, 256, 2048)])
+# (R, M, D): ragged sizes, stacked rows, the served group's shape, and the
+# one-shot path's one row of batch x seq (4 x 256) at whisper-tiny's,
+# gemma-2b's and paligemma-3b's, mamba2-2.7b's and mixtral-8x7b's d_model, and
+# the paper's score net at x (1, 1024, 2)
+K1_SHAPES = [(1, 70, 33), (3, 70, 33), (5, 70, 33), (5, 3, 1031), (2, 128, 2048),
+             (8, 256, 2048), (1, 1024, 384), (1, 1024, 2048), (1, 1024, 2560),
+             (1, 1024, 4096), (1, 1024, 2)]
+
+
+@pytest.mark.parametrize("noise,with_err", [(True, True), (False, False), (True, False),
+                                            (False, True)])
+@pytest.mark.parametrize("R,m,d", K1_SHAPES)
 @pytest.mark.parametrize("r", [1, 2, 3, 4])
-def test_triton_fused_ab_step_matches_plain(cuda, r, R, m, d):
+def test_triton_fused_ab_step_matches_plain(cuda, r, R, m, d, noise, with_err):
     g = torch.Generator(device=cuda).manual_seed(r * 100 + R)
     n = lambda *s: torch.randn(s, generator=g, device=cuda)
     x, hist, psi, C = n(R, m, d), n(r, R, m, d), torch.rand(R, device=cuda) + 0.5, n(R, r)
-    kw = dict(s=torch.rand(R, device=cuda) * 0.2, noise=n(R, m, d), err_coeffs=n(R, r) * 0.1)
+    kw = dict(s=torch.rand(R, device=cuda) * 0.2, noise=n(R, m, d)) if noise else {}
+    if with_err:
+        kw["err_coeffs"] = n(R, r) * 0.1
     before = K.fused_ab_step.launches
     out, err = K.fused_ab_step(x, hist, psi, C, **kw)
     assert K.fused_ab_step.launches == before + 1
     want, want_err = ref.fused_ab_step_ref(x, hist, psi, C, **kw)
     torch.testing.assert_close(out, want, **TOL)
-    torch.testing.assert_close(err, want_err, **TOL)
+    if with_err:
+        torch.testing.assert_close(err, want_err, **TOL)
     for i in range(R):
         sl = slice(i, i + 1)
         o_i, e_i = K.fused_ab_step(x[sl].contiguous(), hist[:, sl].contiguous(), psi[sl],
                                    C[sl], **{k: v[sl] for k, v in kw.items()})
-        assert torch.equal(o_i[0], out[i]) and torch.equal(e_i[0], err[i])
+        assert torch.equal(o_i[0], out[i])
+        if with_err:
+            assert torch.equal(e_i[0], err[i])
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -161,6 +194,7 @@ FA_CASES = [
     (4, 256, 256, 6, 6, 64, False, 0),     # whisper-tiny's decoder: D 64
     (4, 512, 512, 8, 1, 256, False, 0),    # paligemma-3b's prefix and text: S 512
     (4, 256, 256, 32, 2, 128, False, 0),   # glm4-9b's: GQA 32/2
+    (4, 256, 256, 4, 4, 64, False, 0),     # cifar10-scorenet's
 ]
 
 
@@ -170,9 +204,10 @@ def _fa_route(dtype, d):
     return "wgmma" if d in FA.WGMMA_HEAD_DIMS else "mma_sync"
 
 
-def _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, route=None, unaligned=False):
-    """K2 on its route (``route``: asked for; ``unaligned``: on views that
-    start 4 bytes past a 16-byte line) against the plain version."""
+def _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, unaligned=False):
+    """K2 on the route its operands select (``unaligned``: views that start
+    one element past a 16-byte line, the mma_sync or cuda_cores route)
+    against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
     n = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
     q, k, v = n(b, sq, h, d), n(b, sk, kv, d), n(b, sk, kv, d)
@@ -181,14 +216,10 @@ def _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, route=None, unal
         got = FA.flash_attention(_unaligned(q), _unaligned(k), _unaligned(v), causal=causal,
                                  window=window)
         route = "cuda_cores" if dtype == torch.float32 else "mma_sync"
-    elif route is None:
-        got = FA.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        from repro_torch.kernels import build
-        fn = build.entry("flash_attention", "flash_attention_fwd", FA.ARGTYPES)
-        got = FA._launch(fn, q, k, v, causal, window, torch.cuda.current_stream().cuda_stream,
-                         route)
-    _launched_once(FA.flash_attention, route or _fa_route(dtype, d), before, routes)
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        route = _fa_route(dtype, d)
+    _launched_once(FA.flash_attention, route, before, routes)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype
@@ -201,25 +232,13 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, sk, h, kv, d, causal, w
     _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
-def test_cuda_flash_attention_mma_sync_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window):
-    """The mma.sync kernel, asked for on bf16 operands that the
-    wgmma kernel would take, over the same shapes."""
-    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.bfloat16, route="mma_sync")
-
-
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
-def test_cuda_flash_attention_cuda_cores_matches_plain(cuda, b, sq, sk, h, kv, d, causal, window):
-    """The CUDA-core kernel, asked for on float32 operands that the 3xTF32
-    kernel would take, over the same shapes."""
-    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.float32, route="cuda_cores")
-
-
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FA_CASES)
-def test_cuda_flash_attention_float32_unaligned_views(cuda, b, sq, sk, h, kv, d, causal, window):
-    """float32 views that do not start on a 16-byte line take the
-    CUDA-core kernel, with the same results."""
-    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, torch.float32, unaligned=True)
+def test_cuda_flash_attention_unaligned_views(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
+    """Views that do not start on a 16-byte line take the kernel that takes
+    any operand of their dtype, over the same shapes: the CUDA-core kernel
+    in float32, the mma.sync kernel in bf16, with the same results."""
+    _fa_check(cuda, b, sq, sk, h, kv, d, causal, window, dtype, unaligned=True)
 
 
 SS_CASES = [
@@ -233,10 +252,11 @@ SS_CASES = [
 ]
 
 
-def _ss_check(cuda, b, s, h, p, n, chunk, dtype, route=None, unaligned=False, atol_scale=0.0):
-    """K3 on its route (``route``: asked for; ``unaligned``: on views of x,
-    B and C that start 4 bytes past a 16-byte line) against the plain
-    version (``atol_scale``: an absolute term of that times max|want|)."""
+def _ss_check(cuda, b, s, h, p, n, chunk, dtype, unaligned=False, atol_scale=0.0):
+    """K3 on the route its operands select (``unaligned``: views of x, B and
+    C that start one element past a 16-byte line, the mma_sync or
+    cuda_cores route) against the plain version (``atol_scale``: an
+    absolute term of that times max|want|)."""
     g = torch.Generator(device=cuda).manual_seed(s + h + p)
     r = lambda *sh: torch.randn(sh, generator=g, device=cuda)
     x, B, C = r(b, s, h, p).to(dtype), r(b, s, n).to(dtype), r(b, s, n).to(dtype)
@@ -246,15 +266,10 @@ def _ss_check(cuda, b, s, h, p, n, chunk, dtype, route=None, unaligned=False, at
     if unaligned:
         y, st = SS.ssd_scan(_unaligned(x), a, _unaligned(B), _unaligned(C), chunk=chunk)
         own = "cuda_cores" if f32 else "mma_sync"
-    elif route is None:
+    else:
         y, st = SS.ssd_scan(x, a, B, C, chunk=chunk)
         tiled = p % 8 == 0 and n % 8 == 0
         own = ("tf32x3" if tiled else "cuda_cores") if f32 else ("wgmma" if tiled else "mma_sync")
-    else:
-        from repro_torch.kernels import build
-        fn = build.entry("ssd_scan", "ssd_scan_fwd", SS.ARGTYPES)
-        y, st = SS._launch(fn, x, a, B, C, chunk, torch.cuda.current_stream().cuda_stream, route)
-        own = route
     _launched_once(SS.ssd_scan, own, before, routes)
     y_w, st_w = ref.ssd_scan_ref(x, a, B, C, chunk=chunk)
     torch.cuda.synchronize()
@@ -270,64 +285,39 @@ def test_cuda_ssd_scan_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
     _ss_check(cuda, b, s, h, p, n, chunk, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
-def test_cuda_ssd_scan_mma_sync_matches_plain(cuda, b, s, h, p, n, chunk):
-    """The mma.sync kernel, asked for on bf16 operands, over the
-    same shapes."""
-    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, route="mma_sync")
-
-
-@pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
-def test_cuda_ssd_scan_cuda_cores_matches_plain(cuda, b, s, h, p, n, chunk):
-    """The CUDA-core kernel, asked for on float32 operands, over the same
-    shapes."""
-    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32, route="cuda_cores")
-
-
-@pytest.mark.parametrize("b,s,h,p,n,chunk", SS_CASES)
-def test_cuda_ssd_scan_float32_unaligned_views(cuda, b, s, h, p, n, chunk):
-    """float32 views of x, B and C that do not start on a 16-byte line take
-    the CUDA-core kernel, with the same results."""
-    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32, unaligned=True)
+def test_cuda_ssd_scan_unaligned_views(cuda, b, s, h, p, n, chunk, dtype):
+    """Views of x, B and C that do not start on a 16-byte line take the
+    kernel that takes any operand of their dtype, over the same shapes: the
+    CUDA-core kernel in float32, the mma.sync kernel in bf16, with the same
+    results."""
+    _ss_check(cuda, b, s, h, p, n, chunk, dtype, unaligned=True)
 
 
 MAMBA2_CASES = [
     (2, 1000, 2, 64, 128, 256),  # four chunks at mamba2's widths, the last padded
+    (2, 600, 4, 64, 128, 256),   # three chunks, the last padded
     (4, 256, 80, 64, 128, 256),  # mamba2-2.7b's full width, one chunk
 ]
 
 
+@pytest.mark.parametrize("unaligned", [False, True], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA2_CASES)
-def test_cuda_ssd_scan_bf16_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chunk):
-    """The wgmma kernel's state carried over several chunks, and the
-    one-shot path's own shape, in bf16 at the JAX test's 5e-2."""
-    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16)
+def test_cuda_ssd_scan_bf16_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chunk, unaligned):
+    """The state carried over several chunks, and the one-shot path's own
+    shape, in bf16 at the JAX test's 5e-2: on the wgmma kernel (aligned
+    operands) and on the mma.sync kernel (unaligned views)."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, unaligned=unaligned)
 
 
+@pytest.mark.parametrize("unaligned", [False, True], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA2_CASES)
-def test_cuda_ssd_scan_mma_sync_chunks_at_mamba2_widths(cuda, b, s, h, p, n, chunk):
-    """The same on the mma.sync kernel, asked for."""
-    _ss_check(cuda, b, s, h, p, n, chunk, torch.bfloat16, route="mma_sync")
-
-
-@pytest.mark.parametrize("route", ["tf32x3", "cuda_cores"])
-@pytest.mark.parametrize("b,s,h,p,n,chunk", MAMBA2_CASES)
-def test_cuda_ssd_scan_float32_at_mamba2_widths(cuda, b, s, h, p, n, chunk, route):
-    """float32 at mamba2's widths, over four chunks and at the full width,
-    on the 3xTF32 kernel (its own route) and on the CUDA-core kernel (asked
-    for): within 2e-4 and 1e-5 x max|want|."""
-    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32,
-              route=None if route == "tf32x3" else route, atol_scale=1e-5)
-
-
-def _unaligned(t):
-    """A contiguous copy of t whose data starts one element (2 bytes in
-    bf16, 4 in float32) past a 16-byte line."""
-    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = flat[1:].view(t.shape)
-    out.copy_(t)
-    assert out.is_contiguous() and out.data_ptr() % 16
-    return out
+def test_cuda_ssd_scan_float32_at_mamba2_widths(cuda, b, s, h, p, n, chunk, unaligned):
+    """float32 at mamba2's widths, over several chunks and at the full
+    width, on the 3xTF32 kernel (aligned operands) and on the CUDA-core
+    kernel (unaligned views): within 2e-4 and 1e-5 x max|want|."""
+    _ss_check(cuda, b, s, h, p, n, chunk, torch.float32, unaligned=unaligned, atol_scale=1e-5)
 
 
 def test_cuda_tensor_core_kernels_take_unaligned_views(cuda):
@@ -366,6 +356,8 @@ def test_cuda_kernels_reject_what_they_do_not_take(cuda):
 # float32): the views then take the kernels' one-element accesses.
 PW_CASES = [
     (16, 256, 80, 64, 128, 4, 0),   # mamba2-2.7b's one-shot shape
+    (16, 256, 80, 64, 128, 4, 1),   # the same, unaligned views
+    (16, 256, 128, 64, 128, 4, 0),  # granite-4.0-h-small's one-shot shape
     (2, 48, 256, 64, 128, 4, 0),    # jamba-1.5-large's mixer widths (d_inner 16384)
     (2, 40, 32, 16, 16, 4, 0),      # the reduced config (P 16, N 16)
     (3, 2, 32, 16, 16, 4, 0),       # S < K - 1
@@ -435,13 +427,15 @@ def test_cuda_ssm_conv_prep_matches_plain(cuda, b, s, h, p, n, k, extra, dtype):
     torch.testing.assert_close(a, want[3], rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("gate_first", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n,k,extra", PW_CASES)
-def test_cuda_ssm_gated_norm_matches_plain(cuda, b, s, h, p, n, k, extra, dtype):
-    """The ``post`` pass, z a view of the in-projection's output: within
-    one rounding of the plain version (which computes in float32 and rounds
-    once): rtol 2^-7, atol 1e-5 in bf16; rtol = atol = 1e-5 in float32 (the
-    mean's order of summation, rsqrtf)."""
+def test_cuda_ssm_gated_norm_matches_plain(cuda, b, s, h, p, n, k, extra, dtype, gate_first):
+    """The ``post`` pass in both orders of norm and gate (gate first is
+    granite-4.0-h-small's), z a view of the in-projection's output: within
+    one rounding of the plain version of the same order (which computes in
+    float32 and rounds once): rtol 2^-7, atol 1e-5 in bf16; rtol = atol =
+    1e-5 in float32 (the mean's order of summation, rsqrtf)."""
     from repro_torch.kernels import ssm_pointwise as SP
     z, _, _, _ = _pw_operands(cuda, b, s, h, p, n, k, extra, dtype)
     g = torch.Generator(device=cuda).manual_seed(s)
@@ -450,9 +444,9 @@ def test_cuda_ssm_gated_norm_matches_plain(cuda, b, s, h, p, n, k, extra, dtype)
     D = torch.randn(h, generator=g, device=cuda)
     scale = (torch.randn(h * p, generator=g, device=cuda) * 0.1).to(dtype)
     before = SP.gated_norm.launches
-    out = SP.gated_norm(y, xh, z, D, scale, eps=1e-5)
+    out = SP.gated_norm(y, xh, z, D, scale, eps=1e-5, gate_first=gate_first)
     assert SP.gated_norm.launches == before + 1
-    want = SP.gated_norm_ref(y, xh, z, D, scale, 1e-5)
+    want = SP.gated_norm_ref(y, xh, z, D, scale, 1e-5, gate_first)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == want.shape
     tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
@@ -490,6 +484,7 @@ def test_cuda_ssm_gated_norm_at_granite_width(cuda, dtype, gate_first):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kv,d,window,scale", [
     (4, 256, 32, 8, 128, 0, 0.0078125),   # granite-4.0-h-small's: GQA 32/8, scale 1/128
+    (16, 256, 32, 8, 128, 0, 0.0078125),  # the same at granite's one-shot batch
     (2, 100, 8, 1, 64, 16, 0.3),          # MQA with a window, another scale
 ])
 def test_cuda_flash_attention_takes_a_scale(cuda, b, s, h, kv, d, window, scale, dtype):
@@ -748,28 +743,52 @@ def test_cuda_held_back_copies_break_the_first_rings(cuda, kernel):
     assert "RING_DIAG_SHARED_FULL]" in r.stdout, r.stdout
 
 
-def test_cuda_train_step_matches_cpu(cuda):
-    """One diffusion train step of the reduced float32 gemma-2b on the card
-    against the CPU, from the same params, batch and t / eps: the loss at
-    rtol 1e-5, every grad within 1e-3 of its leaf's max |grad| (cuBLAS
-    against the CPU's summation order), the AdamW update of the same grads
-    at rtol 1e-5, atol 1e-7 (elementwise float32)."""
+def _launches():
+    """Every hand-written kernel's launch count."""
+    from repro_torch.kernels import moe_dispatch as MD
+    from repro_torch.kernels import ssm_pointwise as SP
+    return dict(K1=K.fused_ab_step.launches, K2=FA.flash_attention.launches,
+                K3=SS.ssd_scan.launches, ssm_pre=SP.conv_prep.launches,
+                ssm_post=SP.gated_norm.launches, moe_route=MD.route.launches,
+                moe_gather=MD.gather.launches, moe_glu=MD.glu.launches,
+                moe_combine=MD.combine.launches)
+
+
+# one train step of each arch type: dense, ssm, moe, hybrid, encdec (frames),
+# vlm (a prefix) on the diffusion objective, and dense on the ar objective
+TRAIN_CASES = [("gemma_2b", "diffusion"), ("mamba2_2p7b", "diffusion"),
+               ("mixtral_8x7b", "diffusion"), ("jamba_1p5_large", "diffusion"),
+               ("whisper_tiny", "diffusion"), ("paligemma_3b", "diffusion"), ("gemma_2b", "ar")]
+
+
+@pytest.mark.parametrize("arch,objective", TRAIN_CASES)
+def test_cuda_train_step_matches_cpu(cuda, arch, objective):
+    """One train step of the reduced float32 config on the card against the
+    CPU, from the same params, batch (with its frames or prefix) and, for
+    diffusion, t / eps: the loss at rtol 1e-5, every grad within 1e-3 of
+    its leaf's max |grad| (cuBLAS against the CPU's summation order), the
+    AdamW update of the same grads at rtol 1e-5, atol 1e-7 (elementwise
+    float32); then ``train_step`` on the card, finite, on the plain route
+    (no hand-written kernel launches: the reference trains with
+    ``use_pallas=False``, and no kernel has a backward)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import MarkovTextSource, make_batch
     from repro_torch.models.transformer import init_params
     from repro_torch.training import optimizer as O
     from repro_torch.training.steps import make_loss_fn, make_train_step
-    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    cfg = get_config(arch).reduced().with_(objective=objective)
     p_cpu = init_params(cfg, 3, "cpu")
     p_dev = O.tree_map(lambda t: t.to(cuda), p_cpu)
     batch = {k: torch.from_numpy(v) for k, v in
              make_batch(cfg, MarkovTextSource(cfg.vocab_size, 0), 0, 2, 16).items()}
     g = torch.Generator().manual_seed(0)
-    t, eps = torch.rand((2,), generator=g) * 0.99 + 0.01, torch.randn((2, 16, 256), generator=g)
+    draws = {} if objective == "ar" else {
+        "t": torch.rand((2,), generator=g) * 0.99 + 0.01,
+        "eps": torch.randn((2, 16, cfg.d_model), generator=g)}
     loss_fn = make_loss_fn(cfg)
-    (l_c, _), g_c = O.value_and_grad(loss_fn, p_cpu, batch, t=t, eps=eps, has_aux=True)
+    (l_c, _), g_c = O.value_and_grad(loss_fn, p_cpu, batch, has_aux=True, **draws)
     (l_d, _), g_d = O.value_and_grad(loss_fn, p_dev, {k: v.to(cuda) for k, v in batch.items()},
-                                     t=t.to(cuda), eps=eps.to(cuda), has_aux=True)
+                                     has_aux=True, **{k: v.to(cuda) for k, v in draws.items()})
     assert float(l_d) == pytest.approx(float(l_c), rel=1e-5)
     for a, b in zip(_leaves(g_d), _leaves(g_c)):
         assert (a.cpu() - b).abs().max() <= 1e-3 * b.abs().max()
@@ -778,11 +797,44 @@ def test_cuda_train_step_matches_cpu(cuda):
     opt.update(g_d, opt.init(p_dev), p_dev)
     for a, b in zip(_leaves(p_dev), _leaves(p_cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
+    before = _launches()
     _, state, m = make_train_step(cfg, opt)(p_dev, opt.init(p_dev),
                                             {k: v.to(cuda) for k, v in batch.items()},
                                             torch.Generator(device=cuda).manual_seed(1))
     assert all(torch.isfinite(v) for v in m.values()) and int(state.step) == 1
     assert state.step.device.type == "cuda"
+    assert _launches() == before
+
+
+def test_cuda_cifar10_scorenet_trains_and_checkpoints(cuda, tmp_path):
+    """cifar10-scorenet at its published widths (4 layers, d_model 256,
+    float32; vocab 256 as the reference's training test sets it) on the
+    card: 30 diffusion train steps at batch 16, seq 32 of the Markov corpus,
+    constant lr 3e-4, finite, the mean loss of the last 5 below that of the
+    first 5; then its ``(params, opt_state)`` checkpoint restored bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTextSource, make_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.optimizer import AdamW, constant_schedule
+    from repro_torch.training.steps import make_train_step
+    cfg = get_config("cifar10_scorenet").with_(objective="diffusion", vocab_size=256)
+    params = init_params(cfg, 0, cuda)
+    opt = AdamW(constant_schedule(3e-4))
+    state, step = opt.init(params), make_train_step(cfg, opt)
+    src, gen = MarkovTextSource(cfg.vocab_size, 0), torch.Generator(device=cuda).manual_seed(1)
+    losses = []
+    for i in range(30):
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in make_batch(cfg, src, i, 16, 32).items()}
+        params, state, m = step(params, state, batch, gen)
+        losses.append(float(m["loss"]))
+    assert all(map(math.isfinite, losses))
+    assert sum(losses[-5:]) < sum(losses[:5]), losses
+    CKPT.save(str(tmp_path), 30, (params, state), {"next_step": 30})
+    (p2, s2), meta = CKPT.restore(str(tmp_path), (init_params(cfg, 1, cuda), opt.init(params)))
+    assert meta == {"next_step": 30} and int(s2.step) == 30
+    for a, b in zip(_leaves([params, state.m, state.v]), _leaves([p2, s2.m, s2.v])):
+        assert torch.equal(a, b)
 
 
 def test_cuda_adamw_matches_cpu(cuda):
@@ -834,6 +886,283 @@ def test_cuda_score_net_samples_through_k1(cuda):
     torch.testing.assert_close(fused, plain, rtol=1e-5, atol=1e-5)
 
 
+def test_cuda_paper_headline_on_the_gmm(cuda):
+    """The paper's headline on the card, on the 8-mode GMM in 2-D with its
+    exact eps: 1024 samples from one prior draw, tAB3 (fused: K1 once a
+    step) against DDIM at 10 NFE (quadratic steps), both against rho_rk4 on
+    400 log_rho steps: tAB3's RMS error is below DDIM's. The likelihood at
+    8 and 32 kutta3 steps: the error falls, under 0.02 bits/dim at 32. An
+    ``AdaptiveRK23`` solve gives a finite x0."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import (AdaptiveRK23, VPSDE, get_timesteps, make_plan,
+                                  nll_bits_per_dim, sample)
+    from repro_torch.diffusion.analytic import default_gmm
+    sde = VPSDE()
+    gmm = default_gmm(sde, d=2)
+    eps = gmm.eps_fn()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x_T = torch.randn((1024, 2), generator=gen, device=cuda) * sde.prior_std()
+    plan = lambda name, n, kind="quadratic": make_plan(name, sde,
+                                                       get_timesteps(sde, n, kind)).to(cuda)
+    rms = lambda a, b: float(torch.sqrt(torch.mean((a - b) ** 2)))
+    with torch.no_grad():
+        ref_x = sample(plan("rho_rk4", 400, "log_rho"), eps, x_T)
+        tab3 = dataclasses.replace(plan("tab3", 10), fused=True)
+        before = K.fused_ab_step.launches
+        err_tab3 = rms(sample(tab3, eps, x_T), ref_x)
+        assert K.fused_ab_step.launches == before + tab3.n_steps
+        err_ddim = rms(sample(plan("ddim", 10), eps, x_T), ref_x)
+        assert err_tab3 < err_ddim, (err_tab3, err_ddim)
+        x0 = gmm.sample_data(gen, 24, dtype=torch.float64)
+        exact = float(-gmm.log_prob(x0).mean() / 2 / np.log(2.0))
+        nll = {n: abs(float(nll_bits_per_dim(sde, eps, x0, n_steps=n, method="kutta3").mean())
+                      - exact) for n in (8, 32)}
+        assert nll[32] < nll[8] and nll[32] < 0.02, nll
+        assert torch.isfinite(AdaptiveRK23(sde).solve(eps, x_T).x0).all()
+
+
+def _cond(cfg, device, batch=2, seed=13):
+    """A conditioned arch's inputs drawn from a seed, float32 N(0, 1):
+    ``{"frames": (batch, encoder_seq, d_model)}`` (encdec) or ``{"prefix":
+    (batch, prefix_tokens, d_model)}`` (vlm); {} for any other arch."""
+    n = {"encdec": ("frames", cfg.encoder_seq), "vlm": ("prefix", cfg.prefix_tokens)}
+    if cfg.arch_type not in n:
+        return {}
+    name, length = n[cfg.arch_type]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {name: torch.randn((batch, length, cfg.d_model), generator=gen, device=device)}
+
+
+# (arch, use_kernels, moe_dispatch, reduced): every arch type on the one-shot
+# kernel route (the MoE in both dispatch modes), grok on the plain route (its
+# logit softcap is not in K2), and cifar10-scorenet at its published widths
+# (a float32 model: the 3xTF32 K2 at D 64)
+ONE_SHOT_CASES = [("gemma_2b", True, "einsum", True), ("mamba2_2p7b", True, "einsum", True),
+                  ("jamba_1p5_large", True, "einsum", True),
+                  ("mixtral_8x7b", True, "einsum", True), ("mixtral_8x7b", True, "gather", True),
+                  ("grok_1_314b", False, "einsum", True), ("whisper_tiny", True, "einsum", True),
+                  ("paligemma_3b", True, "einsum", True),
+                  ("cifar10_scorenet", True, "einsum", False)]
+
+
+@pytest.mark.parametrize("arch,use_kernels,dispatch,reduced", ONE_SHOT_CASES)
+def test_cuda_one_shot_matches_cpu(cuda, arch, use_kernels, dispatch, reduced):
+    """``sample_tokens`` with a fused tab3 plan of 6 steps (with frames or a
+    prefix where the arch takes them) on the card against the same call on
+    the CPU (plain versions), float32, from the same x_T: a finite x0 within
+    1e-3 (cuBLAS and the 3xTF32 kernels against the CPU's summation order);
+    on the card K1 once a step, K2 once an attention layer and NFE, K3 and
+    each SSM pass once an SSM layer and NFE, each MoE kernel once a MoE
+    layer and NFE (none of K2, K3, the passes and the MoE kernels on the
+    plain route), every K2 and K3 launch on its 3xTF32 kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import VPSDE, get_timesteps, make_plan
+    from repro_torch.diffusion import lm as DLM
+    from repro_torch.models.transformer import _layer_kind, init_params
+    from repro_torch.training import optimizer as O
+    cfg = get_config(arch)
+    cfg = (cfg.reduced() if reduced else cfg).with_(objective="diffusion", moe_dispatch=dispatch)
+    p_cpu = init_params(cfg, 4, "cpu")
+    p_dev = O.tree_map(lambda t: t.to(cuda), p_cpu)
+    sde = VPSDE()
+    plan = dataclasses.replace(make_plan("tab3", sde, get_timesteps(sde, 6)), fused=True)
+    x_T = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(6))
+    c_cpu = _cond(cfg, "cpu")
+    kinds = [_layer_kind(cfg, i) for i in range(cfg.n_layers)]
+    n_attn = sum(k[0] == "attn" for k in kinds) * 6 * use_kernels
+    n_ssm = sum(k[0] == "ssm" for k in kinds) * 6 * use_kernels
+    n_moe = sum(k[1] == "moe" for k in kinds) * 6 * use_kernels
+    want = dict(K1=plan.n_steps, K2=n_attn, K3=n_ssm, ssm_pre=n_ssm, ssm_post=n_ssm,
+                moe_route=n_moe, moe_gather=n_moe, moe_glu=n_moe, moe_combine=n_moe)
+    before = _launches()
+    k2_routes, k3_routes = (dict(FA.flash_attention.route_launches),
+                            dict(SS.ssd_scan.route_launches))
+    with torch.no_grad():
+        _, x_dev = DLM.sample_tokens(p_dev, cfg, plan, None, batch=2, seq_len=40,
+                                     prior_std=1.0, use_kernels=use_kernels,
+                                     x_T=x_T.to(cuda), **{k: v.to(cuda) for k, v in c_cpu.items()})
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in _launches().items()} == want
+        assert FA.flash_attention.route_launches == dict(k2_routes, tf32x3=k2_routes["tf32x3"]
+                                                         + n_attn)
+        assert SS.ssd_scan.route_launches == dict(k3_routes, tf32x3=k3_routes["tf32x3"] + n_ssm)
+        _, x_cpu = DLM.sample_tokens(p_cpu, cfg, plan, None, batch=2, seq_len=40,
+                                     prior_std=1.0, use_kernels=use_kernels, x_T=x_T, **c_cpu)
+    assert x_dev.shape == (2, 40, cfg.d_model) and torch.isfinite(x_dev).all()
+    torch.testing.assert_close(x_dev.cpu(), x_cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_sample_tokens_stream_matches_cpu(cuda):
+    """The served path's one-shot solve (``sample_tokens_stream``: a stacked
+    group of two rows, fused tab3 with the error pair, 8 steps) of the
+    reduced float32 gemma-2b on the card against the CPU from the same x_T:
+    a finite x0 within 1e-3; K1 once a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import VPSDE, get_timesteps, make_plan, stack_plans
+    from repro_torch.diffusion import lm as DLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as O
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    sde = VPSDE()
+    p_cpu = init_params(cfg, 3, "cpu")
+    p_dev = O.tree_map(lambda t: t.to(cuda), p_cpu)
+    plan = make_plan("tab3", sde, get_timesteps(sde, 8), error_estimate=True)
+    plan = stack_plans([dataclasses.replace(plan, fused=True)] * 2)
+    x_T = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(5))
+    before = K.fused_ab_step.launches
+    with torch.no_grad():
+        _, x_dev = DLM.sample_tokens_stream(p_dev, cfg, plan, None, seq_len=16, prior_std=1.0,
+                                            x_T=x_T.to(cuda))
+        torch.cuda.synchronize()
+        assert K.fused_ab_step.launches == before + plan.n_steps
+        _, x_cpu = DLM.sample_tokens_stream(p_cpu, cfg, plan, None, seq_len=16, prior_std=1.0,
+                                            x_T=x_T)
+    assert x_dev.shape == (2, 16, cfg.d_model) and torch.isfinite(x_dev).all()
+    torch.testing.assert_close(x_dev.cpu(), x_cpu, rtol=1e-3, atol=1e-3)
+
+
+def _ar_decode_logits(cfg, params, seq, n_prompt, cond):
+    """Prefill ``seq[:, :n_prompt]`` (with ``cond``: a vlm's ``prefix`` of P
+    positions or an encdec's ``frames``) into a cache of P + ``seq``'s
+    length, then decode the rest of ``seq`` one token at a time at
+    ``cache_index`` P + i. Returns the logits of the last prompt position
+    and of each decoded position, (B, L - n_prompt + 1, vocab)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.training.steps import make_decode_step, make_prefill_step
+    b, L = seq.shape
+    p = cond["prefix"].shape[1] if "prefix" in cond else 0
+    with torch.no_grad():
+        logits, pf = make_prefill_step(cfg)(params, dict(cond, tokens=seq[:, :n_prompt]))
+        cache = T.init_cache(cfg, b, p + L, device=seq.device)
+        for dst, src in zip(cache["blocks"], pf["blocks"]):
+            for name, t in src.items():
+                dst[name][:, :t.shape[1]].copy_(t)
+        if "cross" in pf:
+            cache["cross"] = pf["cross"]
+        out = [logits]
+        decode = make_decode_step(cfg)
+        for i in range(n_prompt, L):
+            logits, cache = decode(params, cache, seq[:, i:i + 1], p + i)
+            out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("arch", ["gemma_2b", "mamba2_2p7b", "h2o_danube_3_4b",
+                                  "jamba_1p5_large", "whisper_tiny", "paligemma_3b"])
+def test_cuda_ar_decode_matches_cpu(cuda, arch):
+    """The reduced float32 model's AR decode on the card against the CPU:
+    prefill 40 tokens (h2o-danube: into its ring of window slots; jamba: a
+    cache of ssm and attention layers; whisper: with frames, then the cross
+    cache; paligemma: behind a prefix that ``cache_index`` counts), then 8
+    teacher-forced decode steps: finite logits of the right shape within
+    1e-3."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import optimizer as O
+    cfg = get_config(arch).reduced().with_(objective="ar")
+    p_cpu = init_params(cfg, 5, "cpu")
+    p_dev = O.tree_map(lambda t: t.to(cuda), p_cpu)
+    seq = torch.from_numpy(np.random.RandomState(8).randint(0, cfg.vocab_size, (2, 48)))
+    c_cpu = _cond(cfg, "cpu")
+    lg_cpu = _ar_decode_logits(cfg, p_cpu, seq, 40, c_cpu)
+    lg_dev = _ar_decode_logits(cfg, p_dev, seq.to(cuda), 40,
+                               {k: v.to(cuda) for k, v in c_cpu.items()}).cpu()
+    assert lg_dev.shape == (2, 9, cfg.vocab_size) and torch.isfinite(lg_dev).all()
+    torch.testing.assert_close(lg_dev, lg_cpu, rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_cld_matches_cpu(cuda):
+    """CLD's matrix tAB-DEIS (order 2, 16 steps) and its fine RK4 reference
+    (200 steps) on the exactly-scored Gaussian problem, float64 on the card
+    against the CPU: finite, rtol 1e-10, atol 1e-12 (matrix products in
+    another order)."""
+    import numpy as np
+
+    from repro_torch.core.matrix_sde import CLD, CLDGaussianOracle, cld_reference, cld_sample
+    cld = CLD()
+    orc = CLDGaussianOracle(cld, mean=1.0, var=0.25)
+    m_t, s_t = orc._moments(1.0)
+    z_T = torch.from_numpy(m_t + np.random.RandomState(0).randn(128, 2)
+                           @ np.linalg.cholesky(s_t).T)
+    ts = np.linspace(cld.T, cld.t0, 17)
+    out = {}
+    for dev in ("cpu", cuda):
+        z = z_T.to(dev)
+        out[str(dev)] = (cld_sample(cld, ts, 2, orc.eps_fn(), z).cpu(),
+                         cld_reference(cld, orc.eps_fn(), z, n_steps=200).cpu())
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
+
+
+def test_cuda_engine_launches_k1_once_an_ab_step(cuda):
+    """``DiffusionServeEngine`` on the card, reduced float32 gemma-2b with a
+    ``RetirePolicy`` and seq_len buckets (128, 256): two staggered waves of
+    ddim, tab3, dpm2m, sndeis2, seeds2 and rho_heun requests, the second
+    sent when request 1 comes back (a join). Every request completes with
+    tokens of its length in the vocabulary; K1 launches once an ``ab``
+    group step; a warm replay of the same waves adds no executor and again
+    launches K1 once an ``ab`` group step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import RetirePolicy, VPSDE, get_timesteps, make_plan, solver_stages
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import DiffusionServeEngine, Request
+    cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
+    sde = VPSDE()
+    eng = DiffusionServeEngine(init_params(cfg, 0, cuda), cfg, sde=sde,
+                               retire=RetirePolicy(tol=0.05, min_k=3, norm="rel"),
+                               seq_len_buckets=(128, 256), device=cuda)
+    wave1 = [Request(uid=0, solver="ddim", nfe=8, seq_len=100, seed=10),
+             Request(uid=1, solver="ddim", nfe=6, seq_len=128, seed=11),
+             Request(uid=2, solver="tab3", nfe=8, seq_len=256, seed=12),
+             Request(uid=3, solver="dpm2m", nfe=8, seq_len=256, seed=13),
+             Request(uid=4, solver="sndeis2", nfe=10, seq_len=200, seed=14),
+             Request(uid=5, solver="seeds2", nfe=8, seq_len=256, seed=15),
+             Request(uid=6, solver="rho_heun", nfe=8, seq_len=128, seed=16)]
+    wave2 = [Request(uid=7, solver="ddim", nfe=6, seq_len=96, seed=17),
+             Request(uid=8, solver="tab3", nfe=6, seq_len=240, seed=18)]
+    method = {q.uid: make_plan(q.solver, sde, get_timesteps(
+        sde, max(1, q.nfe // solver_stages(q.solver)))).method for q in wave1 + wave2}
+
+    def serve():
+        ab, results, sent = [0], [], False
+        on_step = lambda ev: ab.__setitem__(0, ab[0] + (method[ev.uids[0]] == "ab"))
+        before = K.fused_ab_step.launches
+        for q in wave1:
+            eng.submit(q)
+        while eng.busy:
+            results += eng.tick(on_step=on_step)
+            if not sent and any(r.uid == 1 for r in results):
+                for q in wave2:
+                    eng.submit(q)
+                sent = True
+        torch.cuda.synchronize()
+        assert K.fused_ab_step.launches - before == ab[0] > 0
+        return results
+
+    cold = serve()
+    want = {q.uid: q.seq_len for q in wave1 + wave2}
+    assert sorted(r.uid for r in cold) == sorted(want)
+    for r in cold:
+        assert r.tokens.shape == (want[r.uid],)
+        assert 0 <= r.tokens.min() and r.tokens.max() < cfg.vocab_size
+    snap = eng.metrics.snapshot()
+    assert snap["serve_submitted_total"] == snap["serve_completed_total"] == len(want)
+    assert eng.joined_requests >= 1
+    serve()
+    assert eng.metrics.snapshot()["serve_compile_cache_misses_total"] == \
+        snap["serve_compile_cache_misses_total"]
+
+
 @pytest.fixture
 def one_rank_nccl(cuda, tmp_path):
     """A one-rank NCCL default group from a file store (the engine adds its
@@ -854,10 +1183,12 @@ def test_cuda_sharded_engine_one_rank_bitwise(one_rank_nccl):
     gemma-2b on the card: a ragged mix with a join, compaction, early exit
     and a stochastic family gives the unsharded engine's results bitwise
     (at one rank the local shapes are the unsharded ones), K1 launches once
-    an ab group step, and a warm replay adds no executor."""
+    an ab group step, and a warm replay adds no executor; then a
+    ``ServeDriver`` over it completes 4 requests with no crash."""
     from repro_torch.configs import get_config
     from repro_torch.core import RetirePolicy
     from repro_torch.models.transformer import init_params
+    from repro_torch.serving.driver import ServeDriver
     from repro_torch.serving.engine import DiffusionServeEngine, Request
     cfg = get_config("gemma_2b").reduced().with_(objective="diffusion")
     params = init_params(cfg, 0, "cuda")
@@ -897,6 +1228,12 @@ def test_cuda_sharded_engine_one_rank_bitwise(one_rank_nccl):
     assert eng.num_executors == n
     assert all(torch.equal(torch.as_tensor(again[u].tokens), torch.as_tensor(want[u].tokens))
                for u in want)
+    with ServeDriver(eng) as drv:      # its scheduler thread makes every collective
+        handles = [drv.submit(Request(uid=500 + i, seq_len=16, nfe=4, solver="ddim", seed=i))
+                   for i in range(4)]
+        res = [h.result(timeout=300) for h in handles]
+    assert [tuple(r.tokens.shape) for r in res] == [(16,)] * 4
+    assert eng.metrics.snapshot()["driver_crash_total"] == 0
     eng.close()
 
 

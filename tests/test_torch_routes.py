@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ssd_scan as SS
+from repro_torch.kernels.runtime import unaligned_copy as _unaligned
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 DTYPES = [torch.bfloat16, torch.float32]
@@ -76,23 +77,14 @@ def _route(mod, ops):
     return mod.route(*ops) if mod is FA else mod.route(ops[0], ops[2], ops[3])
 
 
-def _unaligned(t):
-    """A contiguous copy of t whose data starts 2 bytes past a 16-byte line."""
-    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
-    out = flat[1:].view(t.shape)
-    out.copy_(t)
-    assert out.is_contiguous() and out.data_ptr() % 16
-    return out
-
-
 def _wrapper(mod):
     return mod.flash_attention if mod is FA else mod.ssd_scan
 
 
-def _launch(mod, entry, ops, route=None):
+def _launch(mod, entry, ops):
     if mod is FA:
-        return mod._launch(entry, *ops, True, 0, None, route)
-    return mod._launch(entry, *ops, 8, None, route)
+        return mod._launch(entry, *ops, True, 0, None)
+    return mod._launch(entry, *ops, 8, None)
 
 
 @pytest.mark.parametrize("route", ROUTE_NAMES)
@@ -205,11 +197,15 @@ def test_cpu_tensors_launch_no_route(mod, dtype):
     assert (out if mod is FA else out[0]).dtype == dtype
 
 
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
-def test_launch_counts_its_route(mod, dtype, monkeypatch):
-    """``_launch`` hands the C entry the route's code and counts one launch,
-    on that route only (a stand-in entry point on CPU tensors)."""
+def test_launch_counts_its_route(mod, dtype, aligned, monkeypatch):
+    """``_launch`` hands the C entry the route its operands select and
+    counts one launch, on that route only (a stand-in entry point on CPU
+    tensors): aligned operands take ``wgmma`` (bf16) or ``tf32x3``
+    (float32), views one element past a 16-byte line ``mma_sync`` or
+    ``cuda_cores``."""
     fn = _wrapper(mod)
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES, 0))
@@ -220,49 +216,26 @@ def test_launch_counts_its_route(mod, dtype, monkeypatch):
         return 0
 
     ops = _operands(mod, dtype)
+    if not aligned:
+        ops = tuple(_unaligned(t) if t.dtype == dtype else t for t in ops)
     _launch(mod, entry, ops)
     code = seen[0][4] if mod is FA else seen[0][7]
     route = _route(mod, ops)
-    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    bf16 = dtype == torch.bfloat16
+    assert route == {(True, True): "wgmma", (True, False): "tf32x3",
+                     (False, True): "mma_sync", (False, False): "cuda_cores"}[aligned, bf16]
     assert code == mod.ROUTE_CODES[route]
     want = dict.fromkeys(mod.ROUTES, 0)
     want[route] = 1
     assert fn.launches == 1 and fn.route_launches == want
 
 
-@pytest.mark.parametrize("mod", [FA, SS], ids=["flash_attention", "ssd_scan"])
-def test_asked_route_must_take_the_operands(mod, monkeypatch):
-    """A route asked for (to time the mma_sync and CUDA-core kernels beside
-    the wgmma and 3xTF32 ones) launches with its own code when it takes the
-    operands; wgmma or tf32x3 on an unaligned view, tf32x3 or cuda_cores on
-    bf16, or a bf16 route on float32 raise before any launch."""
-    fn = _wrapper(mod)
-    monkeypatch.setattr(fn, "launches", 0)
-    monkeypatch.setattr(fn, "route_launches", dict.fromkeys(mod.ROUTES, 0))
-    seen = []
-    entry = lambda *args: seen.append(args) or 0
-    ops, f32 = _operands(mod, torch.bfloat16), _operands(mod, torch.float32)
-    _launch(mod, entry, ops, "mma_sync")
-    _launch(mod, entry, f32, "cuda_cores")
-    codes = [args[4] if mod is FA else args[7] for args in seen]
-    assert codes == [mod.ROUTE_CODES["mma_sync"], mod.ROUTE_CODES["cuda_cores"]]
-    assert fn.route_launches["mma_sync"] == 1 and fn.route_launches["cuda_cores"] == 1
-    unaligned = lambda operands: tuple(_unaligned(t) if t.dtype == operands[0].dtype else t
-                                       for t in operands)
-    bad = [(unaligned(ops), "wgmma"), (unaligned(f32), "tf32x3"),
-           (ops, "cuda_cores"), (ops, "tf32x3"), (f32, "mma_sync"),
-           (f32, "wgmma"), (ops, "tensor_cores")]
-    for operands, route in bad:
-        with pytest.raises(ValueError, match="does not take"):
-            _launch(mod, entry, operands, route)
-    assert len(seen) == 2 and fn.launches == 2
-
-
 @pytest.mark.parametrize("s,chunk,tiles", [(8, 8, 0), (40, 16, 1), (300, 256, 4), (600, 100, 2)])
 def test_ssd_scan_scratch_only_across_chunks(s, chunk, tiles, monkeypatch):
     """The wgmma kernel gets float32 scratch for a private state per
     query-tile block (P x N each) only when S spans more than one chunk; a
-    null pointer otherwise, and on the other routes."""
+    null pointer otherwise, and on the other routes (here ``mma_sync``,
+    which an unaligned view of x selects)."""
     monkeypatch.setattr(SS.ssd_scan, "launches", 0)
     monkeypatch.setattr(SS.ssd_scan, "route_launches", dict.fromkeys(SS.ROUTES, 0))
     g = torch.Generator().manual_seed(1)
@@ -271,8 +244,9 @@ def test_ssd_scan_scratch_only_across_chunks(s, chunk, tiles, monkeypatch):
     B = torch.randn((2, s, 8), generator=g).bfloat16()
     seen = []
     entry = lambda *args: seen.append(args) or 0
-    for route in ("wgmma", "mma_sync"):
-        SS._launch(entry, x, a, B, B.clone(), chunk, None, route)
+    for xs in (x, _unaligned(x)):
+        SS._launch(entry, xs, a, B, B.clone(), chunk, None)
+    assert SS.ssd_scan.route_launches == {"cuda_cores": 0, "mma_sync": 1, "wgmma": 1, "tf32x3": 0}
     want = 2 * 3 * tiles * 16 * 8
     assert SS._scratch_floats(2, s, 3, 16, 8, chunk) == want
     assert (seen[0][6] != 0) == (want > 0) and seen[1][6] == 0

@@ -211,7 +211,7 @@ def time_variant(kernel, route, lib) -> dict:
             b, s, h, p, n, chunk = dims
             a = torch.rand((b, s, h), generator=gen, device=dev) * 0.299 + 0.7
             args = (rnd(b, s, h, p), a, rnd(b, s, n), rnd(b, s, n), chunk)
-        call = lambda: mod._launch(fn, *args, stream, route)
+        call = lambda: mod._launch(fn, *args, stream)
         best = min(sum(us for name, us in chip_smoke._device_kernel_us(call, 20).items()
                        if route in name) for _ in range(3))
         out[shape] = best
